@@ -1,12 +1,15 @@
 """The CUDA kernels' arithmetic, compiled as plain C++ and run on the CPU.
 
 kernels/csrc/*.cu guard their CUDA launch code with __CUDACC__; without it
-each file compiles with g++ into a host loop over lanes that runs the very
-same per-lane device functions.  This checks K1 / K2 / K3's recursions
-against the port's plain PyTorch versions in f64 (atol 1e-9 on values up to
-~1e3: the same recursions, sums reassociated) on serial arms of 1..7
-joints, a branched tree and a prismatic joint.  It does not check that the
-kernels build with nvcc or launch: chip_smoke.py does that on the card."""
+each file compiles with g++ into a host loop (over lanes, or over scenarios
+with one serial "thread" per block) that runs the very same device
+functions.  This checks K1 / K2 / K3's recursions against the port's plain
+PyTorch versions in f64 (atol 1e-9 on values up to ~1e3: the same
+recursions, sums reassociated) on serial arms of 1..7 joints, a branched
+tree and a prismatic joint; and K4's PCG against ``pcg_fused_plain`` in
+f64 (1e-10 of the solution's scale, equal iteration counts: the same loop,
+reductions in another order).  It does not check that the kernels build
+with nvcc or launch: chip_smoke.py does that on the card."""
 
 import ctypes
 import shutil
@@ -19,6 +22,8 @@ import torch
 from test_prismatic import _RPR_URDF
 from trajoptmpcreference_tpu_torch.kernels import _build
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm
+from trajoptmpcreference_tpu_torch.ops import btridiag as tbtd
+from trajoptmpcreference_tpu_torch.ops import fused_pcg as FP
 from trajoptmpcreference_tpu_torch.ops import lanes
 from trajoptmpcreference_tpu_torch.ops.kinematics import LaneKinematics
 
@@ -63,10 +68,13 @@ def host_libs(tmp_path_factory):
         assert proc.returncode == 0, log
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, f"tmr_{name}_f64")
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = _build.ARGTYPES[name]
         fn.restype = ctypes.c_int
         libs[name] = fn
+        if name == "pcg":
+            libs["pcg_smem_elems"] = lib.tmr_pcg_smem_elems
+            lib.tmr_pcg_smem_elems.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.tmr_pcg_smem_elems.restype = ctypes.c_longlong
     return libs
 
 
@@ -107,3 +115,48 @@ def test_host_compiled_kernels_match_plain(spec, host_libs, tmp_path):
     kin = LaneKinematics(robot)
     tv = _run(host_libs["task_vec"], robot, q, qd, u, (2 * kin.k, L))
     np.testing.assert_allclose(tv, kin.task_vec_L(q, qd), atol=1e-12, rtol=0)
+
+
+def _pcg_problem(B, N, bs, seed, precond):
+    """Packed K4 operands for B random systems (scenario 1 negative
+    definite, scenario 0's r0 exactly zero: converged before the first
+    iteration) with right-hand sides of scales 1e-2..1e2."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, N, bs, bs))
+    sign = np.where(np.arange(B) == 1, -1.0, 1.0)[:, None, None, None]
+    diag = sign * (M @ np.swapaxes(M, -1, -2) + 4.0 * bs * np.eye(bs))
+    upper = sign * 0.3 * rng.standard_normal((B, N - 1, bs, bs))
+    r0 = rng.standard_normal((B, N, bs)) * np.logspace(-2, 2, B)[:, None, None]
+    r0[0] = 0.0
+    A = tbtd.BlockTridiag(torch.tensor(diag), torch.tensor(upper))
+    return FP.pack_operands(A, torch.tensor(r0), precond)
+
+
+@pytest.mark.parametrize("N", [1, 7, 64])
+@pytest.mark.parametrize("relative", [False, True])
+@pytest.mark.parametrize("precond", ["J", "BJ", "SS"])
+def test_host_compiled_pcg_matches_plain(precond, relative, N, host_libs):
+    B, bs, max_iter = 4, 12, 60
+    tol = 1e-14 if relative else 1e-10
+    ops = _pcg_problem(B, N, bs, seed=N, precond=precond)
+    dx = torch.full_like(ops[3], float("nan"))
+    iters = torch.full((B,), -1, dtype=torch.int32)
+    rc = host_libs["pcg"](*(t.data_ptr() for t in ops), dx.data_ptr(),
+                          iters.data_ptr(), B, N, bs, int(precond == "SS"),
+                          int(relative), max_iter, tol, None)
+    assert rc == 0
+    ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
+                                        max_iter=max_iter, relative=relative)
+    assert iters.tolist() == ref_iters.tolist()
+    assert iters[0] == 0 and torch.equal(dx[0], torch.zeros_like(dx[0]))
+    for k in range(1, B):
+        np.testing.assert_allclose(dx[k].numpy(), ref[k].numpy(), rtol=0,
+                                   atol=1e-10 * float(ref[k].abs().max()))
+
+
+def test_host_compiled_pcg_shared_memory_size(host_libs):
+    """The kernel's shared-memory carve equals the wrapper's estimate."""
+    for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5)):
+        elems = host_libs["pcg_smem_elems"](N, bs)
+        assert FP.smem_bytes(N, bs, torch.float64) == 8 * elems
+        assert FP.smem_bytes(N, bs, torch.float32) == 4 * elems

@@ -1,20 +1,24 @@
 """trajoptmpcreference_tpu_torch — the PyTorch + CUDA port of
 trajoptmpcreference_tpu, slice by slice.
 
-This slice runs the flagship MPC closed loop: URDF robot models, lanes
-rigid-body dynamics and kinematics with hand-written CUDA kernels (K1
-fd_grad, K2 fd, K3 task residual) on the card, Euler / semi-implicit
-integrators, the task-space cost, SQP method "S" with the exact split
-Schur solve (cyclic reduction or block-Thomas) and the receding-horizon
-loop.  Every function takes the scenario batch as an explicit leading
-dimension.  The package imports torch and numpy, never jax.
+It runs the flagship MPC closed loop: URDF robot models, lanes rigid-body
+dynamics and kinematics with hand-written CUDA kernels (K1 fd_grad, K2 fd,
+K3 task residual) on the card, Euler / semi-implicit integrators, the
+task-space cost, SQP methods "S" (the exact split Schur solve by cyclic
+reduction or block-Thomas) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur
+system by preconditioned CG, optionally through the fused PCG kernel K4)
+and the receding-horizon loop.  Every function takes the scenario batch as
+an explicit leading dimension.  The package imports torch and numpy,
+never jax.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm
 from trajoptmpcreference_tpu_torch.models.plants import Plant, URDFPlant
+from trajoptmpcreference_tpu_torch.ops.btridiag import pcg, preconditioner
+from trajoptmpcreference_tpu_torch.ops.fused_pcg import make_batched_pcg
 from trajoptmpcreference_tpu_torch.solvers.costs import (
     Cost,
     QuadraticCostParams,
@@ -43,5 +47,5 @@ __all__ = [
     "QuadraticCostParams", "UrdfCost", "ConstraintSet", "SQPOptions",
     "SQPResult", "SQPSolver", "make_sqp", "SQPSolverMethods",
     "MPCSolverMethods", "MPCController", "MPCResult", "make_mpc",
-    "run_scheduled",
+    "run_scheduled", "pcg", "preconditioner", "make_batched_pcg",
 ]

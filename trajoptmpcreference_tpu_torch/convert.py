@@ -34,6 +34,20 @@ def cost_params_from_numpy(Q, QF, R, xg, dtype=torch.float64, device="cpu"):
     return QuadraticCostParams(t(Q), t(QF), t(R), t(xg))
 
 
+def sqp_kwargs_from_jax(method="N", options=None, use_pallas_pcg=False,
+                        exact_schur="thomas") -> dict:
+    """Keyword arguments of the port's ``make_sqp`` for a JAX ``make_sqp(...,
+    method=..., options=..., use_pallas_pcg=..., exact_schur=...)`` call.
+    ``method`` may be a string or either package's SQPSolverMethods member;
+    ``options`` a JAX SQPOptions, its ``dataclasses.asdict`` or None;
+    use_pallas_pcg becomes use_kernel_pcg."""
+    if options is not None and not isinstance(options, dict):
+        options = dataclasses.asdict(options)
+    return dict(method=str(getattr(method, "value", method)),
+                options=None if options is None else options_from_dict(options),
+                exact_schur=exact_schur, use_kernel_pcg=bool(use_pallas_pcg))
+
+
 def options_from_dict(d: dict) -> SQPOptions:
     """SQPOptions from ``dataclasses.asdict`` of the JAX SQPOptions; an
     unknown field raises (the port's options carry every JAX field)."""

@@ -1,5 +1,5 @@
 """The flagship closed loop: 6-DoF serial arm, horizon 64, task-space cost,
-SQP method "S" in the MPC regime — the configuration bench.py measures
+SQP in the MPC regime — the configuration bench.py measures
 (``__graft_entry__._flagship`` / ``_flagship_mpc``, bench.py:135-198),
 built from the port with the same defaults.
 
@@ -7,6 +7,9 @@ An episode runs one cold step (4 SQP iterations, block-Thomas Schur solves,
 the 9-rung ladder alpha_factor 0.5 / alpha_min 0.005) and then steady steps
 (3 iterations, cyclic reduction, the parallel 3-rung ladder [1, .316, .1]
 with the Armijo derivative at the base point), chained by run_scheduled.
+With ``PCG_KNOBS`` (the bench's BENCH_METHOD=PCG-SS BENCH_SQP_ITERS=4) both
+phases take 4 iterations and solve the Schur system by PCG-SS, 40 PCG
+iterations at a relative tolerance of 1e-4.
 """
 
 from __future__ import annotations
@@ -24,15 +27,21 @@ from trajoptmpcreference_tpu_torch.solvers.sqp import SQPOptions, make_sqp
 # block-Thomas exact solves
 COLD_KNOBS = dict(max_iter=4, alpha_min=0.005, alpha_factor=0.5,
                   exact_schur="thomas")
+# the PCG flagship (__graft_entry__.py:34-39: "method="PCG-SS",
+# pcg_iters=40, max_iter=4 reproduces the round-2 PCG flagship")
+PCG_KNOBS = dict(method="PCG-SS", max_iter=4, pcg_iters=40)
 
 
 def flagship(N=64, max_iter=3, dtype=torch.float32, device="cpu",
              use_kernels=True, exact_schur="cr", alpha_min=0.11,
-             alpha_factor=0.316):
+             alpha_factor=0.316, method="S", pcg_iters=40, pcg_tol=1e-4,
+             use_kernel_pcg=False):
     """(plant, cost, solver) with the defaults of __graft_entry__._flagship
-    for method "S" (the knobs are those the cold phase changes).
+    (the knobs are those the cold phase and the PCG variant change).
     use_kernels selects K1 / K2 / K3 on CUDA tensors (the JAX flagship's
-    use_pallas / use_pallas_fd / use_pallas_task)."""
+    use_pallas / use_pallas_fd / use_pallas_task); use_kernel_pcg routes
+    the PCG methods through the fused PCG, K4 on CUDA tensors (the JAX
+    use_pallas_pcg)."""
     plant = URDFPlant(robot=serial_arm(6), integrator_type=1,
                       use_kernel_fd_grad=use_kernels, use_kernel_fd=use_kernels,
                       use_kernel_task=use_kernels)
@@ -46,9 +55,9 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cpu",
     opts = SQPOptions(
         expected_reduction_min=-100.0,   # per the reference's own example
         exit_tolerance=1e-4,             # f32-safe
-        exit_tolerance_linSys=1e-4,      # PCG fields: unused by method "S"
+        exit_tolerance_linSys=pcg_tol,   # PCG fields: unused by method "S"
         max_iter=max_iter,
-        max_iter_linSys=40,
+        max_iter_linSys=pcg_iters,
         pcg_relative=True,
         parallel_line_search=True,
         alpha_factor=alpha_factor,
@@ -57,8 +66,8 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cpu",
         rho_init=1e-3,
         rho_min=1e-3,
     )
-    solver = make_sqp(plant, cost, None, N, 0.015, method="S", options=opts,
-                      exact_schur=exact_schur)
+    solver = make_sqp(plant, cost, None, N, 0.015, method=method, options=opts,
+                      exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return plant, cost, solver
 
 

@@ -1,16 +1,25 @@
-"""Build and load the hand-written CUDA kernels (K1, K2, K3).
+"""Build and load the hand-written CUDA kernels (K1-K4).
 
 Each source in ``csrc/`` with a plain C interface is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``<repo>/build/kernels/<hash>/`` (the hash covers every file in csrc/), at
-first use and never at import.  The libraries are loaded with ctypes; every
-entry has the signature
+first use and never at import.  The libraries are loaded with ctypes; the
+lanes kernels K1-K3 (fd, fd_grad, task_vec) have the entries
 
     int tmr_<name>_<f32|f64>(const void* q, const void* qd, const void* u,
                              const void* consts, void* out, int n, int L,
                              void* stream)
 
-and returns ``cudaGetLastError()`` after its launch on ``stream``.
+and the PCG kernel K4 (pcg)
+
+    int tmr_pcg_<f32|f64>(const void* diag_p, const void* upper,
+                          const void* pdiag_p, const void* r0, void* dx,
+                          void* iters, int B, int N, int bs, int ss,
+                          int relative, int max_iter, double tol,
+                          void* stream)
+
+Each returns ``cudaGetLastError()`` after its launch on ``stream``
+(``ARGTYPES`` binds each library's signature).
 
     python -m trajoptmpcreference_tpu_torch.kernels._build   # build, print ptxas
 """
@@ -28,7 +37,16 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = CSRC.parents[2] / "build" / "kernels"
-LIBRARIES = ("fd", "fd_grad", "task_vec")
+LIBRARIES = ("fd", "fd_grad", "task_vec", "pcg")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LANES_ARGS = [_P] * 5 + [_I, _I, _P]
+# argument types of each library's tmr_<name>_<f32|f64> entries
+ARGTYPES = {
+    "fd": _LANES_ARGS,
+    "fd_grad": _LANES_ARGS,
+    "task_vec": _LANES_ARGS,
+    "pcg": [_P] * 6 + [_I] * 6 + [ctypes.c_double, _P],
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -101,8 +119,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"tmr_{name}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
+            fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
         _loaded[name] = lib
     return _loaded[name]

@@ -1,12 +1,15 @@
-"""KKT blocks and the exact split Schur solve for the SQP subproblem.
+"""KKT blocks and the split Schur solve (exact or PCG) for the SQP
+subproblem.
 
 Port of trajoptmpcreference_tpu/solvers/kkt.py for the slice:
 ``KKTBlocks``, ``SchurSolveStats``, ``KKTSystem.form_blocks``, and the
 structure-exploiting Schur path for a cost Hessian that is (x, u)-block
 diagonal with no hard-constraint rows (``_schur_blocks_split``,
-``_recover_dxu_split``, ``solve_schur`` on its exact branch).  The dense
-KKT (method "N"), the generic and condensed Schur assemblies and PCG are
-still to be ported (ROADMAP queue 1).
+``_recover_dxu_split``, ``solve_schur``).  The Schur system is solved
+exactly (block-Thomas or cyclic reduction) or by PCG: ``btridiag.pcg``, or
+with ``use_kernel_pcg`` the fused PCG of ops/fused_pcg.py (kernel K4 on
+CUDA tensors).  The dense KKT (method "N"), the generic and condensed
+Schur assemblies (hard rows) are still to be ported (ROADMAP queue 1).
 
 Every block carries the scenario batch as its leading axis: H (B, N, n, n),
 g (B, N, n), A (B, N-1, nx, nx), B (B, N-1, nx, nu), defect (B, N, nx).
@@ -18,6 +21,7 @@ phantom controls.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -31,7 +35,10 @@ from trajoptmpcreference_tpu_torch.ops.btridiag import (
     btd_block_thomas,
     btd_cyclic_reduction,
     btd_matvec,
+    pcg,
+    preconditioner,
 )
+from trajoptmpcreference_tpu_torch.ops.fused_pcg import make_batched_pcg
 from trajoptmpcreference_tpu_torch.solvers import constraints as C
 from trajoptmpcreference_tpu_torch.solvers.costs import Cost
 
@@ -52,6 +59,11 @@ class KKTBlocks(NamedTuple):
 class SchurSolveStats(NamedTuple):
     pcg_iters: torch.Tensor
     pcg_converged: torch.Tensor
+    # the PCG dual trace (ref: GBD-PCG-Python/PCG.py:82-95): |nu| and the
+    # true |gamma - S lam| histories, (B, max_iter+1); set only by the
+    # btridiag.pcg path with trace_residual=True
+    nu_trace: Optional[torch.Tensor] = None
+    res_trace: Optional[torch.Tensor] = None
 
 
 def _sym(M):
@@ -70,6 +82,10 @@ class KKTSystem:
     # exact Schur solver: "thomas" (block LU, sequential over N), "cr"
     # (block cyclic reduction), "cr_refine" (cr + one refinement step)
     exact_schur: str = "thomas"
+    # route the Schur PCG through ops/fused_pcg (kernel K4 on CUDA tensors,
+    # its plain version on CPU tensors) instead of btridiag.pcg; the
+    # counterpart of the JAX use_pallas_pcg
+    use_kernel_pcg: bool = False
 
     @property
     def nx(self) -> int:
@@ -197,26 +213,52 @@ class KKTSystem:
         ru[..., :-1, :] += _bmv(blocks.B.transpose(-1, -2), lam[..., 1:, :])
         return torch.cat([_bmv(iGxx, rx), _bmv(iGuu, ru)], dim=-1)
 
-    def solve_schur(self, blocks: KKTBlocks, rho, use_pcg: bool = False):
-        """Exact Schur-complement solve (ref: TrajoptMPCReference.py:361-455).
-        Returns (dxu (B, N, n), lam (B, N, bs), stats)."""
-        if use_pcg:
-            raise NotImplementedError(
-                "the PCG Schur solve (and kernel K4) is not ported yet; see "
-                "ROADMAP.md queues 1 and 2")
+    def solve_schur(self, blocks: KKTBlocks, rho, use_pcg: bool = False,
+                    pcg_tol: float = 1e-6, pcg_max_iter: int = 100,
+                    precond: str = "SS", guess: Optional[torch.Tensor] = None,
+                    pcg_relative: bool = False, trace_residual: bool = False):
+        """Schur-complement solve, exact or PCG (ref:
+        TrajoptMPCReference.py:361-455; kkt.py:478-541).  guess (B, N, bs)
+        warm-starts PCG; trace_residual carries the PCG dual trace in the
+        stats (btridiag.pcg path only).  Returns (dxu (B, N, n),
+        lam (B, N, bs), stats)."""
         if not self._can_split_schur():
             raise NotImplementedError(
                 "only the split Schur assembly (no hard rows, separable cost "
                 "Hessian) is ported; see ROADMAP.md queue 1")
         S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
-        if self.exact_schur in ("cr", "cr_refine"):
-            lam = btd_cyclic_reduction(S, gam)
-            if self.exact_schur == "cr_refine":
-                lam = lam + btd_cyclic_reduction(S, gam - btd_matvec(S, lam))
+        if use_pcg:
+            if self.use_kernel_pcg:
+                solve = _fused_pcg_solver(self.N, S.bs, precond, pcg_tol,
+                                          pcg_max_iter, pcg_relative)
+                g0 = torch.zeros_like(gam) if guess is None else guess
+                lam, iters = solve(S, gam, g0)
+                stats = SchurSolveStats(iters, iters < pcg_max_iter)
+            else:
+                res = pcg(S, gam, preconditioner(S, precond), guess=guess,
+                          exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
+                          relative=pcg_relative, trace_residual=trace_residual)
+                lam = res.x
+                stats = SchurSolveStats(res.iters, res.converged,
+                                        nu_trace=res.nu_trace,
+                                        res_trace=res.res_trace)
         else:
-            lam = btd_block_thomas(S, gam)
-        batch = rho.shape
-        stats = SchurSolveStats(
-            torch.zeros(batch, dtype=torch.long, device=rho.device),
-            torch.ones(batch, dtype=torch.bool, device=rho.device))
+            if self.exact_schur in ("cr", "cr_refine"):
+                lam = btd_cyclic_reduction(S, gam)
+                if self.exact_schur == "cr_refine":
+                    lam = lam + btd_cyclic_reduction(S, gam - btd_matvec(S, lam))
+            else:
+                lam = btd_block_thomas(S, gam)
+            batch = rho.shape
+            stats = SchurSolveStats(
+                torch.zeros(batch, dtype=torch.long, device=rho.device),
+                torch.ones(batch, dtype=torch.bool, device=rho.device))
         return self._recover_dxu_split(iGxx, iGuu, blocks, lam), lam, stats
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_pcg_solver(N: int, bs: int, precond: str, tol: float,
+                      max_iter: int, relative: bool):
+    """Cached per-(shape, hyperparameter) fused-PCG closure (kkt.py:580-587)."""
+    return make_batched_pcg(N, bs, precond=precond, tol=tol,
+                            max_iter=max_iter, relative=relative)

@@ -1,6 +1,7 @@
 """Receding-horizon MPC loop over a batch of scenarios.
 
-Port of trajoptmpcreference_tpu/solvers/mpc.py for method "QP-S": each
+Port of trajoptmpcreference_tpu/solvers/mpc.py for the methods "QP-S" and
+"QP-PCG-J" / "QP-PCG-BJ" / "QP-PCG-SS": each
 control step re-solves the horizon problem warm-started from the shifted
 previous plan and multipliers, applies the first control to the simulated
 plant and advances.  The JAX ``lax.scan`` over control steps becomes a
@@ -162,22 +163,24 @@ def make_mpc(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              N: int, dt: float, method: str = "QP-S",
              options: Optional[SQPOptions] = None,
              sim_plant: Optional[Plant] = None,
-             shift: int = 1) -> MPCController:
+             shift: int = 1, use_kernel_pcg: bool = False) -> MPCController:
     """Build a receding-horizon MPC controller (ref:
-    TrajoptMPCReference.py:21-27).  The slice ports 'QP-S'."""
+    TrajoptMPCReference.py:21-27; mpc.py:229-260).  The port runs 'QP-S'
+    and 'QP-PCG-*' ('iLQR' and 'QP-N' are not ported); use_kernel_pcg goes
+    to make_sqp."""
     from trajoptmpcreference_tpu_torch.solvers.methods import method_str
     method = method_str(method)
     if method not in MPC_METHODS:
         raise ValueError(f"Invalid MPC method {method!r}; options are "
                          f"{MPC_METHODS} (ref: TrajoptMPCReference.py:21-27)")
-    if method != "QP-S":
+    if method in ("iLQR", "QP-N"):
         raise NotImplementedError(
-            f"MPC method {method!r} is not ported yet (the slice runs "
-            "'QP-S'); see ROADMAP.md queue 1")
+            f"MPC method {method!r} is not ported yet; see ROADMAP.md queue 1")
     if options is None:
         # the reference's own example disables the lower reduction-ratio
         # bound (ref: examples/twolinks.py:87)
         options = SQPOptions(expected_reduction_min=-100.0)
-    solver = make_sqp(plant, cost, cset, N, dt, method="S", options=options)
+    solver = make_sqp(plant, cost, cset, N, dt, method=method[3:],
+                      options=options, use_kernel_pcg=use_kernel_pcg)
     return MPCController(solver=solver, sim_plant=sim_plant or plant,
                          shift=shift)

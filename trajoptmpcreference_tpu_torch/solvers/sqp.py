@@ -1,10 +1,12 @@
 """SQP trajectory optimizer over a batch of scenarios.
 
 Port of trajoptmpcreference_tpu/solvers/sqp.py (ref:
-TrajoptMPCReference.py:510-760) for method "S" (exact Schur solve): the
-soft-constraint outer loop, the SQP iteration, and the L1-merit line search
-(Nocedal & Wright 18.3), with the reference's exit codes, rho schedule and
-merit weight.
+TrajoptMPCReference.py:510-760) for the Schur methods: "S" (exact Schur
+solve) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur system by PCG,
+warm-started from the previous multipliers; ``use_kernel_pcg`` routes it
+through the fused kernel K4).  It holds the soft-constraint outer loop, the
+SQP iteration, and the L1-merit line search (Nocedal & Wright 18.3), with
+the reference's exit codes, rho schedule and merit weight.
 
 Every tensor carries the scenario batch as its leading axis: X (B, nx, N),
 U (B, nu, N-1), scalars (B,).  The JAX ``lax.while_loop``s with freeze gates
@@ -13,9 +15,10 @@ finished scenario's state is left unchanged by ``torch.where`` (the JAX
 batch-invariance freeze, sqp.py:605-615, :673-675), and one host check per
 iteration ends the loop once every scenario is done.
 
-Still to be ported (raising NotImplementedError): methods "N" and PCG-*,
-the RTI and step-clip options (``ls_fixed_alpha``, ``rti_*``,
-``ls_step_clip``), the PCG trace (``trace_linsys``) and horizon sharding.
+Still to be ported (raising NotImplementedError): method "N", the RTI and
+step-clip options (``ls_fixed_alpha``, ``rti_*``, ``ls_step_clip``) and
+horizon sharding.  ``trace_linsys`` carries the PCG dual trace in each
+iteration's QP stats; ``utils.trace`` that reads it is not ported.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ class SQPOptions:
     ls_step_clip: float = float("inf")      # trust-region clip (not ported)
     exit_tolerance_soft: float = 1e-6
     max_iter_soft: int = 10
-    trace_linsys: bool = False              # PCG trace (not ported)
+    trace_linsys: bool = False              # PCG dual trace in the QP stats
 
 
 class SQPResult(NamedTuple):
@@ -268,6 +271,20 @@ class SQPSolver:
             c_new=s["c_new"], merit_new=s["merit_new"], D=s["D"],
             ratio=s["ratio"])
 
+    # ------------------------------------------------------------ QP solve
+    def solve_qp_from_blocks(self, blocks, rho, guess):
+        """The QP step from the KKT blocks (sqp.py:311-338): the method
+        picks exact Schur or PCG and its preconditioner; only PCG takes the
+        multiplier warm start ``guess``.  Returns (dxu, lam, stats)."""
+        o = self.options
+        use_pcg = self.method.startswith("PCG")
+        return self.kkt.solve_schur(
+            blocks, rho, use_pcg=use_pcg, pcg_tol=o.exit_tolerance_linSys,
+            pcg_max_iter=o.max_iter_linSys,
+            precond=self.method[4:] if use_pcg else "SS",
+            guess=guess if use_pcg else None, pcg_relative=o.pcg_relative,
+            trace_residual=o.trace_linsys)
+
     # --------------------------------------------------- one SQP iteration
     def sqp_iterate(self, X, U, J, c, merit, rho, drho, guess, mu, xs,
                     cost_params, cstate, hit_max):
@@ -275,7 +292,7 @@ class SQPSolver:
         logic (ref: TrajoptMPCReference.py:571-750)."""
         o = self.options
         blocks = self.kkt.form_blocks(X, U, xs, cost_params, cstate)
-        dxu, lam, qp_stats = self.kkt.solve_schur(blocks, rho)
+        dxu, lam, qp_stats = self.solve_qp_from_blocks(blocks, rho, guess)
         D_base = (blocks.g * dxu).sum((-1, -2)) if o.ls_grad_at_base else None
         ls = self.line_search(X, U, dxu, J, c, merit, xs, cost_params, cstate,
                               mu=mu, D_base=D_base)
@@ -397,8 +414,6 @@ def _check_options(o: SQPOptions) -> None:
         unported.append("RTI (ls_fixed_alpha / rti_lean / rti_step_clip)")
     if math.isfinite(o.ls_step_clip):
         unported.append("ls_step_clip")
-    if o.trace_linsys:
-        unported.append("trace_linsys")
     if unported:
         raise NotImplementedError(
             f"SQPOptions {', '.join(unported)} not ported yet; see ROADMAP.md "
@@ -408,20 +423,24 @@ def _check_options(o: SQPOptions) -> None:
 def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              N: int, dt: float, method: str = "N",
              options: Optional[SQPOptions] = None,
-             exact_schur: str = "thomas") -> SQPSolver:
-    """Build an SQP solver (ref: TrajoptMPCReference.py:29-42,510).
-    ``method`` accepts a string or a SQPSolverMethods member; the slice
-    ports method "S".  exact_schur: "thomas", "cr" or "cr_refine"."""
+             exact_schur: str = "thomas",
+             use_kernel_pcg: bool = False) -> SQPSolver:
+    """Build an SQP solver (ref: TrajoptMPCReference.py:29-42,510;
+    sqp.py:690-742).  ``method`` accepts a string or a SQPSolverMethods
+    member: "S", "PCG-J", "PCG-BJ" or "PCG-SS" ("N" is not ported).
+    exact_schur: "thomas", "cr" or "cr_refine" (method "S").
+    use_kernel_pcg: run the PCG methods' Schur solve as the fused PCG of
+    ops/fused_pcg (kernel K4 on CUDA tensors)."""
     from trajoptmpcreference_tpu_torch.solvers.methods import method_str
     method = method_str(method)
     if method not in SQP_METHODS:
         raise ValueError(
             f"Invalid QP solver {method!r}; options are N (dense KKT), "
             "S (Schur), PCG-J / PCG-BJ / PCG-SS (ref: :590-596)")
-    if method != "S":
+    if method == "N":
         raise NotImplementedError(
-            f"SQP method {method!r} is not ported yet (the slice runs method "
-            "'S'); see ROADMAP.md queue 1")
+            "SQP method 'N' (dense KKT) is not ported yet; see ROADMAP.md "
+            "queue 1")
     if exact_schur not in ("thomas", "cr", "cr_refine"):
         raise ValueError(
             f"Invalid exact_schur {exact_schur!r}; options are 'thomas', "
@@ -431,6 +450,6 @@ def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
     options = options or SQPOptions()
     _check_options(options)
     kkt = KKTSystem(plant=plant, cost=cost, cset=cset, N=N, dt=dt,
-                    exact_schur=exact_schur)
+                    exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return SQPSolver(plant=plant, cost=cost, cset=cset, N=N, dt=dt,
                      method=method, options=options, kkt=kkt)
