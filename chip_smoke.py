@@ -5,21 +5,28 @@
 Phases (each prints its own numbers; any failure exits non-zero):
 
 1. toolchain: torch / CUDA / nvcc versions, card name and power limit;
-2. build: nvcc compiles kernels K1-K4 (csrc/*.cu) for sm_90a, in parallel;
+2. build: nvcc compiles kernels K1-K4 (csrc/*.cu) for sm_90a, in parallel,
+   and g++ the same sources over an operation-counting scalar
+   (kernels/opcount.py), whose counts give each kernel's bound;
 3. each of K1-K3 against its plain PyTorch version on the card, f32, at
-   the main path's lane counts and a ragged one; K4 (the fused PCG)
+   the main path's lane counts and a ragged one (K2 at all four of its
+   lane counts, 512 to 290,304); K4 (the fused PCG)
    against its plain version for J, BJ and SS on SPD and negative-definite
    systems at B = 512, N = 64, bs = 12 (20 fixed iterations, and run to
    convergence against cyclic reduction), on ragged batches, in f64, and
    its shared-memory limit;
-4. each kernel's time beside its plain version's (CUDA events, median of 20);
+4. each kernel's time beside its plain version's and its bound (device
+   time, median of 20; K2 at each of its lane counts); the bound is the
+   larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (f32 off the
+   tensor cores), the H100 SXM data sheet's peaks at 700 W;
 5. in-situ: one KKT assembly and one full SQP solve of the flagship with
    the kernels on vs off; K4 and its plain version on the flagship's
    cold-start Schur systems (relative residuals, iteration counts);
 6. the main path: the flagship closed loop (6-DoF arm, N = 64, B = 512
    scenarios of bench.py, f32): one cold block-Thomas step, then 149
    cyclic-reduction steps through run_scheduled, with the kernels' launch
-   counts and the bench's quality gate;
+   counts (split by lane count), each kernel's episode-weighted time
+   (launches x time at each lane count) and the bench's quality gate;
 7. the PCG-SS closed loop (flagship.PCG_KNOBS, K4 on): the same episode
    with 4 SQP iterations per step and the Schur systems solved by PCG-SS,
    with K1-K4's launch counts and the quality gate.
@@ -28,12 +35,13 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
 """
 
+import collections
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -41,6 +49,11 @@ B, N, STEPS, COLD_STEPS = 512, 64, 150, 1
 L_MAIN = B * (N - 1)                      # 32,256 lanes per knot sweep
 L_RAGGED = 1000                           # not a multiple of the block size
 L_LADDER = 3 * L_MAIN                     # the 3-rung ladder's K2 call
+L_SIM = B                                 # the MPC sim step's K2 call
+L_COLD = 9 * L_MAIN                       # the cold step's 9-rung ladder
+K2_LANES = [L_SIM, L_RAGGED, L_MAIN, L_LADDER, L_COLD]
+# H100 SXM peaks (data sheet, 700 W): f32 off the tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 TOL = {"fd_grad": 1e-4, "fd": 1e-4, "task_vec": 1e-5}   # the JAX package's own
 # K4 vs its plain version, f32: max|d|/max|ref| after 20 fixed iterations,
 # and each scenario's max|x - x_cr|/max|x_cr| after running to convergence
@@ -69,20 +82,10 @@ def rel_err(out, ref):
 
 
 def cuda_ms(fn, reps=20):
-    """Median of ``reps`` single-call times from CUDA events (ms)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    """Median of ``reps`` device times of one call (ms): CUDA events behind
+    a device spin that outlasts the host's enqueue (kernels/timing.py)."""
+    from trajoptmpcreference_tpu_torch.kernels.timing import device_ms
+    return device_ms(fn, reps)
 
 
 def main():
@@ -93,7 +96,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from trajoptmpcreference_tpu_torch import flagship as F
-    from trajoptmpcreference_tpu_torch.kernels import _build
+    from trajoptmpcreference_tpu_torch.kernels import _build, opcount
     from trajoptmpcreference_tpu_torch.models.plants import URDFPlant
     from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
     from trajoptmpcreference_tpu_torch.ops import btridiag as BT
@@ -117,13 +120,24 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    built = _build.build_all()
-    log(f"[build] {time.perf_counter() - t0:.1f} s wall; per library "
+    with ThreadPoolExecutor(2) as pool:
+        counting = pool.submit(opcount.build_all)
+        built = _build.build_all()
+        counting.result()
+    log(f"[build] {time.perf_counter() - t0:.1f} s wall (nvcc and the g++ "
+        "operation counters together); per library "
         + json.dumps({k: round(v, 1) for k, v in built.items()})
         + f"; dir {_build.build_dir()}")
     for name in ("fd", "fd_grad", "task_vec"):
+        extra = ""
+        if name == "fd":
+            extra = ("; dynamic shared memory per block at n=6: "
+                     f"{lanes.fd_smem_bytes(6, torch.float32)} bytes f32, "
+                     f"{lanes.fd_smem_bytes(6, torch.float64)} bytes f64 "
+                     f"({lanes.FD_LANES_PER_BLOCK} lanes x "
+                     f"{lanes.FD_GROUP} threads)")
         log(f"[ptxas] {name} (f32, n=6): "
-            + ptxas_summary(_build.ptxas_report(name), "IfLi6E"))
+            + ptxas_summary(_build.ptxas_report(name), "IfLi6E") + extra)
     for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
         key = "pcg_kernelI" + ("f" if tag == "f32" else "d") + "E"
         log(f"[ptxas] pcg ({tag}): "
@@ -147,7 +161,7 @@ def main():
                     [L_MAIN, L_RAGGED]),
         "fd": (lambda q, qd, u: lanes.fd_kernel(dyn.packed(q), 6, q, qd, u),
                lambda q, qd, u: lanes.fd_lanes(robot, q, qd, u, consts=dyn.consts(q)),
-               [L_MAIN, L_RAGGED, L_LADDER]),
+               K2_LANES),
         "task_vec": (lambda q, qd, u: K.task_vec_kernel(kin.packed(q), 6, q, qd),
                      lambda q, qd, u: kin.task_vec_L(q, qd),
                      [L_MAIN, L_RAGGED]),
@@ -163,6 +177,7 @@ def main():
             rel = rel_err(out, ref)
             if L == L_MAIN:
                 max_abs[name] = float((out - ref).abs().max())
+            del out, ref
             log(f"[check] {name} L={L}: max|d|/max|ref| = {rel:.3e} "
                 f"(limit {TOL[name]:.0e})")
             assert rel < TOL[name], (name, L, rel)
@@ -170,22 +185,58 @@ def main():
     max_abs["pcg"] = check_pcg(torch, BT, FP, dev)
 
     # ---- 4. kernel times at the main path's lane count (K4: B = 512 SS
-    # systems, 40 fixed iterations)
+    # systems, 40 fixed iterations), each beside its bound
+    packed6 = dyn.packed(torch.zeros(1, dtype=f32, device=dev))
+    per_lane = {name: opcount.count_lanes(name, packed6, 6)
+                for name in ("fd", "fd_grad", "task_vec")}
+    log("[bound] operations per lane at n=6 (kernels/opcount.py, a multiply-"
+        f"add counted as 2): {json.dumps(per_lane)}; K2's dense first design "
+        f"(lanes_common.cuh forward_dynamics) {opcount.count_fd_dense(packed6, 6)}")
+    rows = {"fd": 6, "fd_grad": 3 * 36, "task_vec": 6}   # outputs per lane
+    ins = {"fd": 18, "fd_grad": 18, "task_vec": 12}       # inputs per lane
+    bounds = {}
+
+    def lane_bound(name, L):
+        """(bound ms, what binds) for one call over L lanes in f32."""
+        by_ops = per_lane[name] * L / PEAK_FLOPS
+        by_bytes = 4 * (ins[name] + rows[name]) * L / PEAK_BYTES
+        return (1e3 * max(by_ops, by_bytes),
+                "operations" if by_ops >= by_bytes else "bytes")
+
     ms, plain_ms = {}, {}
     for name, (kern, plain, _) in kernels.items():
         q, qd, u = inputs(L_MAIN, 90)
         plain_ms[name] = cuda_ms(lambda: plain(q, qd, u))
         ms[name] = cuda_ms(lambda: kern(q, qd, u))
+        bounds[name] = lane_bound(name, L_MAIN)
         log(f"[time] {name} L={L_MAIN}: kernel {ms[name]:.4f} ms, plain "
-            f"{plain_ms[name]:.4f} ms (median of 20, CUDA events)")
+            f"{plain_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}) (median of 20, device time)")
+    k2_ms = {}
+    for L in K2_LANES:
+        q, qd, u = inputs(L, 90)
+        k2_ms[L] = cuda_ms(lambda: lanes.fd_kernel(dyn.packed(q), 6, q, qd, u))
+        bnd, by = lane_bound("fd", L)
+        log(f"[time] fd L={L}: kernel {k2_ms[L]:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}), {100 * bnd / k2_ms[L]:.1f}% of bound (median of 20, "
+            "device time)")
     S, b = random_systems(torch, BT, B, N, PCG_BS, 91, 1.0, f32, dev)
     ops = FP.pack_operands(S, b, "SS")
     kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
     plain_ms["pcg"] = cuda_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
     ms["pcg"] = cuda_ms(lambda: FP.pcg_fused_kernel(*ops, **kw))
+    # at tol = 0 every scenario runs the 40 iterations: one scenario's count
+    # is every scenario's
+    pcg_ops = B * opcount.count_pcg(*(t[:1] for t in ops), ss=True,
+                                    relative=False, max_iter=40, tol=0.0)
+    pcg_bytes = 4 * (sum(t.numel() for t in ops) + ops[3].numel()) + 4 * B
+    by_ops, by_bytes = pcg_ops / PEAK_FLOPS, pcg_bytes / PEAK_BYTES
+    bounds["pcg"] = (1e3 * max(by_ops, by_bytes),
+                     "operations" if by_ops >= by_bytes else "bytes")
     log(f"[time] pcg B={B} N={N} bs={PCG_BS} SS 40 iterations: kernel "
-        f"{ms['pcg']:.4f} ms, plain {plain_ms['pcg']:.4f} ms (median of 20, "
-        "CUDA events)")
+        f"{ms['pcg']:.4f} ms, plain {plain_ms['pcg']:.4f} ms, bound "
+        f"{bounds['pcg'][0]:.4f} ms ({bounds['pcg'][1]}; {pcg_ops} operations, "
+        f"{pcg_bytes} bytes) (median of 20, device time)")
 
     # ---- 5. in-situ: the flagship's KKT blocks and one solve, kernels on/off
     x0s_np, goals_np = F.bench_scenarios(B)
@@ -217,6 +268,7 @@ def main():
     # ---- 6. the main path
     launched = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
                 FP.pcg_fused_kernel)
+    by_lanes, restore = record_lane_counts(lanes, K)
     torch.cuda.synchronize()
     for k in launched:
         k.launches = 0
@@ -225,6 +277,7 @@ def main():
                                N=N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    restore()
     counts = {"fd_grad": lanes.fd_grad_kernel.launches,
               "fd": lanes.fd_kernel.launches,
               "task_vec": K.task_vec_kernel.launches}
@@ -236,22 +289,63 @@ def main():
     assert finite
     assert res.X_applied.shape == (B, 12, STEPS + 1)
     assert gate_ok
+    episode_weighted(torch, kernels, inputs, by_lanes, "[main]")
 
     # ---- 7. the PCG-SS closed loop through K4
     pcg_counts = pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched)
     counts["pcg"] = pcg_counts["pcg"]
+    log(f"[pcg] K4 episode-weighted time: {pcg_counts['pcg']} launches x "
+        f"{ms['pcg']:.4f} ms (40 fixed iterations, an upper bound on the "
+        f"episode's) = {pcg_counts['pcg'] * ms['pcg']:.2f} ms")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"trajoptmpcreference_tpu_torch/kernels/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": counts[name],
          "max_abs_err": max_abs[name], "ms": ms[name],
-         "plain_ms": plain_ms[name]} for name in REPLACES]}))
+         "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name in REPLACES]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def record_lane_counts(lanes, K):
+    """Count the lanes kernels' launches by (library, lane count) while the
+    main path runs, through the one launch function their wrappers share;
+    returns (counter, restore)."""
+    seen = collections.Counter()
+    original = lanes.launch
+
+    def recording(lib_name, n, packed, out, q, qd, u=None):
+        seen[(lib_name, q.shape[1])] += 1
+        return original(lib_name, n, packed, out, q, qd, u)
+
+    lanes.launch = K.launch = recording
+
+    def restore():
+        lanes.launch = K.launch = original
+
+    return seen, restore
+
+
+def episode_weighted(torch, kernels, inputs, by_lanes, tag):
+    """Print each lanes kernel's launches by lane count and its episode-
+    weighted time: the sum over lane counts of launches x the kernel's time
+    at that count (median of 20, device time, random inputs)."""
+    for name, (kern, _, _) in kernels.items():
+        split = sorted((L, c) for (lib, L), c in by_lanes.items() if lib == name)
+        total, parts = 0.0, []
+        for L, c in split:
+            q, qd, u = inputs(L, 95)
+            t = cuda_ms(lambda: kern(q, qd, u))
+            total += c * t
+            parts.append(f"{c} x L={L} at {t:.4f} ms")
+        log(f"{tag} {name} launches by lane count: " + ", ".join(parts)
+            + f"; episode-weighted time {total:.2f} ms")
 
 
 def random_systems(torch, BT, B, N, bs, seed, sign, dtype, dev):

@@ -8,8 +8,14 @@ PyTorch versions in f64 (atol 1e-9 on values up to ~1e3: the same
 recursions, sums reassociated) on serial arms of 1..7 joints, a branched
 tree and a prismatic joint; and K4's PCG against ``pcg_fused_plain`` in
 f64 (1e-10 of the solution's scale, equal iteration counts: the same loop,
-reductions in another order).  It does not check that the kernels build
-with nvcc or launch: chip_smoke.py does that on the card."""
+reductions in another order).  K2 runs as a thread group per lane: its
+host build runs each phase for the group's G threads in turn, once in
+order and once in reverse (a phase in which one thread read what another
+wrote would give another answer), over whole blocks of lanes with a
+ragged tail.  The kernels' shared-memory carves are held to the wrappers'
+formulas, and the operation counts behind chip_smoke.py's bounds
+(kernels/opcount.py) to the loops' structure.  It does not check that the
+kernels build with nvcc or launch: chip_smoke.py does that on the card."""
 
 import ctypes
 import shutil
@@ -20,7 +26,7 @@ import pytest
 import torch
 
 from test_prismatic import _RPR_URDF
-from trajoptmpcreference_tpu_torch.kernels import _build
+from trajoptmpcreference_tpu_torch.kernels import _build, opcount
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm
 from trajoptmpcreference_tpu_torch.ops import btridiag as tbtd
 from trajoptmpcreference_tpu_torch.ops import fused_pcg as FP
@@ -57,20 +63,28 @@ def host_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
     procs = {}
-    for name in _build.LIBRARIES:
-        so = out / f"lib{name}.so"
-        procs[name] = (subprocess.Popen(
+    # K2 a second time, its group's threads run in reverse order
+    builds = [(name, name, []) for name in _build.LIBRARIES]
+    builds.append(("fd_reversed", "fd", ["-DTMR_FD_REVERSE_TIDS"]))
+    for key, name, flags in builds:
+        so = out / f"lib{key}.so"
+        procs[key] = (subprocess.Popen(
             ["g++", "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-             "-o", str(so), str(_build.CSRC / f"{name}.cu")],
+             *flags, "-o", str(so), str(_build.CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    for name, (proc, so) in procs.items():
+    for key, (proc, so) in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, log
+        name = key.replace("_reversed", "")
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, f"tmr_{name}_f64")
         fn.argtypes = _build.ARGTYPES[name]
         fn.restype = ctypes.c_int
-        libs[name] = fn
+        libs[key] = fn
+        if key == "fd":
+            libs["fd_smem_elems"] = lib.tmr_fd_smem_elems
+            lib.tmr_fd_smem_elems.argtypes = [ctypes.c_int]
+            lib.tmr_fd_smem_elems.restype = ctypes.c_longlong
         if name == "pcg":
             libs["pcg_smem_elems"] = lib.tmr_pcg_smem_elems
             lib.tmr_pcg_smem_elems.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -115,6 +129,64 @@ def test_host_compiled_kernels_match_plain(spec, host_libs, tmp_path):
     kin = LaneKinematics(robot)
     tv = _run(host_libs["task_vec"], robot, q, qd, u, (2 * kin.k, L))
     np.testing.assert_allclose(tv, kin.task_vec_L(q, qd), atol=1e-12, rtol=0)
+
+
+K2_SPECS = [f"arm{n}" for n in range(1, 8)] + ["rpr", "ytree"]
+# one lane, an odd count inside one block, and a ragged last block
+K2_LANES = [1, 11, 2 * lanes.FD_LANES_PER_BLOCK + 5]
+
+
+@pytest.mark.parametrize("order", ["fd", "fd_reversed"])
+@pytest.mark.parametrize("L", K2_LANES)
+@pytest.mark.parametrize("spec", K2_SPECS)
+def test_host_compiled_fd_groups_match_plain(spec, L, order, host_libs,
+                                             tmp_path):
+    """K2's phases at the card's group size G, thread by thread, against
+    fd_lanes in f64."""
+    robot = _robot(spec, tmp_path)
+    n = robot.n
+    rng = np.random.default_rng(100 * n + L)
+    q, qd, u = (torch.tensor(rng.standard_normal((n, L))) for _ in range(3))
+    out = _run(host_libs[order], robot, q, qd, u, (n, L))
+    np.testing.assert_allclose(out, lanes.fd_lanes(robot, q, qd, u),
+                               atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("n", range(1, 8))
+def test_host_compiled_fd_shared_memory_size(n, host_libs):
+    """K2's shared-memory carve (fd.cu smem_elems) equals the wrapper's
+    formula, and every supported n fits one block."""
+    elems = host_libs["fd_smem_elems"](n)
+    assert lanes.fd_smem_bytes(n, torch.float64) == 8 * elems
+    assert lanes.fd_smem_bytes(n, torch.float32) == 4 * elems
+    lanes.check_fd_fits(n, torch.float64)
+
+
+def test_fd_wrapper_refuses_a_block_over_the_shared_memory_limit():
+    n = 24
+    assert lanes.fd_smem_bytes(n, torch.float64) > lanes.SMEM_LIMIT
+    q = torch.zeros((n, 3), dtype=torch.float64)
+    packed = torch.zeros(lanes.HEADER + n * lanes.JOINT_STRIDE,
+                         dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        lanes.fd_kernel(packed, n, q, q, q)
+
+
+def test_operation_counts_follow_the_code():
+    """kernels/opcount.py: the lanes kernels' counts per lane are whole
+    numbers, K2's group design does fewer operations than its dense first
+    design, and a PCG iteration costs the same every time."""
+    packed = lanes.pack_robot(serial_arm(6), torch.float64, "cpu")
+    counts = {k: opcount.count_lanes(k, packed, 6)
+              for k in ("fd", "fd_grad", "task_vec")}
+    assert all(float(c).is_integer() and c > 0 for c in counts.values())
+    assert counts["task_vec"] < counts["fd"] < opcount.count_fd_dense(
+        packed, 6) < counts["fd_grad"]
+    ops = _pcg_problem(2, 8, 12, seed=3, precond="SS")
+    kw = dict(ss=True, relative=False, tol=0.0)
+    c0, c10, c20 = (opcount.count_pcg(*ops, max_iter=k, **kw)
+                    for k in (0, 10, 20))
+    assert c0 > 0 and c20 - c10 == c10 - c0 > 0
 
 
 def _pcg_problem(B, N, bs, seed, precond):

@@ -51,7 +51,7 @@ def systems():
         x, u, s, p, ())))(jnp.asarray(X), jnp.asarray(U), jnp.asarray(xs), cps)
     jschur = jax.jit(jax.vmap(jkkt._schur_blocks_split))(jblocks,
                                                          jnp.asarray(rho))
-    _, tcost, tsolver = F.flagship(N=N, dtype=torch.float64)
+    _, tcost, tsolver = F.flagship(N=N, dtype=torch.float64, device="cpu")
     return dict(X=X, U=U, xs=xs, goals=goals, rho=rho, jblocks=jblocks,
                 jschur=jschur, tcost=tcost, tkkt=tsolver.kkt)
 

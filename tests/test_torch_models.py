@@ -125,6 +125,6 @@ def test_cost_params_from_numpy_batched_goal():
     rng = np.random.default_rng(0)
     xg = rng.standard_normal((3, 6))
     p = convert.cost_params_from_numpy(np.eye(6), 100 * np.eye(6),
-                                       0.01 * np.eye(6), xg)
+                                       0.01 * np.eye(6), xg, device="cpu")
     assert p.xg.shape == (3, 6) and p.xg.dtype == torch.float64
     np.testing.assert_array_equal(p.xg.numpy(), xg)

@@ -131,7 +131,7 @@ def test_pcg_flagship_solve_matches_jax(scenarios):
     cps = jax.vmap(lambda g: jcost.default_params._replace(xg=g))(
         jnp.asarray(goals))
     ref = jax.jit(jax.vmap(jsolver.solve))(jnp.asarray(X0), jnp.asarray(U0), cps)
-    _, cost, solver = F.flagship(N=N, dtype=f64, **F.PCG_KNOBS)
+    _, cost, solver = F.flagship(N=N, dtype=f64, device="cpu", **F.PCG_KNOBS)
     assert solver.method == "PCG-SS" and solver.options.max_iter_linSys == 40
     res = solver.solve(torch.tensor(X0), torch.tensor(U0),
                        cost.default_params._replace(xg=torch.tensor(goals)))

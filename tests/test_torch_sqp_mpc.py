@@ -79,7 +79,7 @@ def test_flagship_solve_matches_jax(scenarios):
     cps = jax.vmap(lambda g: jcost.default_params._replace(xg=g))(
         jnp.asarray(goals))
     ref = jax.jit(jax.vmap(jsolver.solve))(jnp.asarray(X0), jnp.asarray(U0), cps)
-    _, cost, solver = F.flagship(N=N, dtype=f64)
+    _, cost, solver = F.flagship(N=N, dtype=f64, device="cpu")
     res = solver.solve(torch.tensor(X0), torch.tensor(U0),
                        cost.default_params._replace(xg=torch.tensor(goals)))
     np.testing.assert_array_equal(res.exit_sqp.numpy(), np.asarray(ref.exit_sqp))
@@ -129,7 +129,7 @@ def test_batch_invariance(config):
         U0 = np.zeros((3, 2, 9))
         tol = 1e-12
     else:
-        _, cost, solver = F.flagship(N=N, dtype=f64, max_iter=10)
+        _, cost, solver = F.flagship(N=N, dtype=f64, max_iter=10, device="cpu")
         x0s, goals = F.bench_scenarios(3, seed=0)
         X0 = np.repeat(x0s[:, :, None], N, axis=2)
         U0 = 0.1 * rng.standard_normal((3, 6, N - 1))
@@ -148,7 +148,7 @@ def test_batch_invariance(config):
 def test_watchdog_coasts_and_cold_resets():
     """With an actuation bound no solve meets, every step applies zero
     control and cold-resets the warm-start carry (mpc.py:157-169)."""
-    _, cost, solver = F.flagship(N=N, dtype=f64)
+    _, cost, solver = F.flagship(N=N, dtype=f64, device="cpu")
     ctrl = MPCController(solver=solver, sim_plant=solver.plant,
                          watchdog_u_max=1e-9)
     x0s, goals = F.bench_scenarios(2)

@@ -27,9 +27,22 @@ def robot_from_numpy(obj) -> RobotModel:
         damping=arr("damping"))
 
 
-def cost_params_from_numpy(Q, QF, R, xg, dtype=torch.float64, device="cpu"):
-    """QuadraticCostParams of tensors; ``xg`` may be (d,) or per-scenario
-    (B, d)."""
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device on a machine without
+    CUDA raises (the entry points default to the card and never fall back
+    to the CPU: pass device="cpu" for that)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} asked for, but CUDA is not "
+                           "available here; pass device='cpu' to run on the "
+                           "CPU")
+    return device
+
+
+def cost_params_from_numpy(Q, QF, R, xg, dtype=torch.float64, device="cuda"):
+    """QuadraticCostParams of tensors on ``device`` (the card unless the
+    caller asks for another); ``xg`` may be (d,) or per-scenario (B, d)."""
+    device = require_device(device)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     return QuadraticCostParams(t(Q), t(QF), t(R), t(xg))
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from trajoptmpcreference_tpu_torch.convert import require_device
 from trajoptmpcreference_tpu_torch.models.plants import URDFPlant
 from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
 from trajoptmpcreference_tpu_torch.solvers.costs import UrdfCost
@@ -32,7 +33,7 @@ COLD_KNOBS = dict(max_iter=4, alpha_min=0.005, alpha_factor=0.5,
 PCG_KNOBS = dict(method="PCG-SS", max_iter=4, pcg_iters=40)
 
 
-def flagship(N=64, max_iter=3, dtype=torch.float32, device="cpu",
+def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
              use_kernels=True, exact_schur="cr", alpha_min=0.11,
              alpha_factor=0.316, method="S", pcg_iters=40, pcg_tol=1e-4,
              use_kernel_pcg=False):
@@ -41,7 +42,9 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cpu",
     use_kernels selects K1 / K2 / K3 on CUDA tensors (the JAX flagship's
     use_pallas / use_pallas_fd / use_pallas_task); use_kernel_pcg routes
     the PCG methods through the fused PCG, K4 on CUDA tensors (the JAX
-    use_pallas_pcg)."""
+    use_pallas_pcg).  The tensors go to ``device``, the card unless the
+    caller asks for another; without CUDA the default raises."""
+    device = require_device(device)
     plant = URDFPlant(robot=serial_arm(6), integrator_type=1,
                       use_kernel_fd_grad=use_kernels, use_kernel_fd=use_kernels,
                       use_kernel_task=use_kernels)

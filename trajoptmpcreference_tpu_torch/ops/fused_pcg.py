@@ -40,11 +40,9 @@ from trajoptmpcreference_tpu_torch.ops.btridiag import (
     _inv_blocks,
     btd_matvec,
 )
-from trajoptmpcreference_tpu_torch.ops.lanes import on_card
+from trajoptmpcreference_tpu_torch.ops.lanes import SMEM_LIMIT, on_card
 
 PRECONDS = ("J", "BJ", "SS")
-# the opt-in shared memory of one thread block on Hopper (227 KB)
-SMEM_LIMIT = 232_448
 
 
 def _tri_indices(bs: int):
