@@ -6,8 +6,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
 
 1. toolchain: torch / CUDA / nvcc versions, card name and power limit;
 2. build: nvcc compiles kernels K1-K4 (csrc/*.cu) for sm_90a, in parallel,
-   and g++ the same sources over an operation-counting scalar
-   (kernels/opcount.py), whose counts give each kernel's bound;
+   and g++ the operation counters (kernels/opcount.py): K1-K3's functions
+   as they need to be computed (kernels/needed_ops.cpp, each value once),
+   whose counts give their bounds, and the kernels' own sources;
 3. each of K1-K3 against its plain PyTorch version on the card, f32, at
    the main path's lane counts and a ragged one (K2 at all four of its
    lane counts, 512 to 290,304); K4 (the fused PCG)
@@ -15,18 +16,21 @@ Phases (each prints its own numbers; any failure exits non-zero):
    systems at B = 512, N = 64, bs = 12 (20 fixed iterations, and run to
    convergence against cyclic reduction), on ragged batches, in f64, and
    its shared-memory limit;
-4. each kernel's time beside its plain version's and its bound (device
-   time, median of 20; K2 at each of its lane counts); the bound is the
-   larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (f32 off the
-   tensor cores), the H100 SXM data sheet's peaks at 700 W;
+4. each kernel's time beside its plain version's and its bound, median of
+   20, with two timers (kernels/timing.py): CUDA events around one call
+   (``ms``, the yardstick of earlier runs) and device time behind a spin
+   (``device_ms``); K2 at each of its lane counts.  The bound is the
+   larger of bytes / 3.35 TB/s and needed operations / 67 TFLOP/s (f32 off
+   the tensor cores), the H100 SXM data sheet's peaks at 700 W;
 5. in-situ: one KKT assembly and one full SQP solve of the flagship with
    the kernels on vs off; K4 and its plain version on the flagship's
    cold-start Schur systems (relative residuals, iteration counts);
 6. the main path: the flagship closed loop (6-DoF arm, N = 64, B = 512
    scenarios of bench.py, f32): one cold block-Thomas step, then 149
    cyclic-reduction steps through run_scheduled, with the kernels' launch
-   counts (split by lane count), each kernel's episode-weighted time
-   (launches x time at each lane count) and the bench's quality gate;
+   counts (split by lane count), each kernel's episode-weighted device
+   time and bound (launches x time, launches x bound, at each lane count),
+   the loss between them, and the bench's quality gate;
 7. the PCG-SS closed loop (flagship.PCG_KNOBS, K4 on): the same episode
    with 4 SQP iterations per step and the Schur systems solved by PCG-SS,
    with K1-K4's launch counts and the quality gate.
@@ -81,13 +85,6 @@ def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-def cuda_ms(fn, reps=20):
-    """Median of ``reps`` device times of one call (ms): CUDA events behind
-    a device spin that outlasts the host's enqueue (kernels/timing.py)."""
-    from trajoptmpcreference_tpu_torch.kernels.timing import device_ms
-    return device_ms(fn, reps)
-
-
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -97,6 +94,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from trajoptmpcreference_tpu_torch import flagship as F
     from trajoptmpcreference_tpu_torch.kernels import _build, opcount
+    from trajoptmpcreference_tpu_torch.kernels.timing import device_ms, events_ms
     from trajoptmpcreference_tpu_torch.models.plants import URDFPlant
     from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
     from trajoptmpcreference_tpu_torch.ops import btridiag as BT
@@ -133,9 +131,7 @@ def main():
         if name == "fd":
             extra = ("; dynamic shared memory per block at n=6: "
                      f"{lanes.fd_smem_bytes(6, torch.float32)} bytes f32, "
-                     f"{lanes.fd_smem_bytes(6, torch.float64)} bytes f64 "
-                     f"({lanes.FD_LANES_PER_BLOCK} lanes x "
-                     f"{lanes.FD_GROUP} threads)")
+                     f"{lanes.fd_smem_bytes(6, torch.float64)} bytes f64")
         log(f"[ptxas] {name} (f32, n=6): "
             + ptxas_summary(_build.ptxas_report(name), "IfLi6E") + extra)
     for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
@@ -187,11 +183,13 @@ def main():
     # ---- 4. kernel times at the main path's lane count (K4: B = 512 SS
     # systems, 40 fixed iterations), each beside its bound
     packed6 = dyn.packed(torch.zeros(1, dtype=f32, device=dev))
-    per_lane = {name: opcount.count_lanes(name, packed6, 6)
+    per_lane = {name: opcount.count_needed(name, packed6, 6)
                 for name in ("fd", "fd_grad", "task_vec")}
-    log("[bound] operations per lane at n=6 (kernels/opcount.py, a multiply-"
-        f"add counted as 2): {json.dumps(per_lane)}; K2's dense first design "
-        f"(lanes_common.cuh forward_dynamics) {opcount.count_fd_dense(packed6, 6)}")
+    done = {name: opcount.count_lanes(name, packed6, 6) for name in per_lane}
+    log("[bound] operations per lane at n=6, a multiply-add counted as 2: "
+        f"the functions need {json.dumps(per_lane)} (kernels/needed_ops.cpp, "
+        f"the bounds' count); the kernels do {json.dumps(done)} "
+        "(their own sources, every thread of a group)")
     rows = {"fd": 6, "fd_grad": 3 * 36, "task_vec": 6}   # outputs per lane
     ins = {"fd": 18, "fd_grad": 18, "task_vec": 12}       # inputs per lane
     bounds = {}
@@ -203,28 +201,31 @@ def main():
         return (1e3 * max(by_ops, by_bytes),
                 "operations" if by_ops >= by_bytes else "bytes")
 
-    ms, plain_ms = {}, {}
+    ms, dev_ms, plain_ms = {}, {}, {}
     for name, (kern, plain, _) in kernels.items():
         q, qd, u = inputs(L_MAIN, 90)
-        plain_ms[name] = cuda_ms(lambda: plain(q, qd, u))
-        ms[name] = cuda_ms(lambda: kern(q, qd, u))
+        plain_ms[name] = events_ms(lambda: plain(q, qd, u))
+        ms[name] = events_ms(lambda: kern(q, qd, u))
+        dev_ms[name] = device_ms(lambda: kern(q, qd, u))
         bounds[name] = lane_bound(name, L_MAIN)
-        log(f"[time] {name} L={L_MAIN}: kernel {ms[name]:.4f} ms, plain "
-            f"{plain_ms[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-            f"({bounds[name][1]}) (median of 20, device time)")
-    k2_ms = {}
+        log(f"[time] {name} L={L_MAIN}: kernel {ms[name]:.4f} ms events, "
+            f"{dev_ms[name]:.4f} ms device; plain {plain_ms[name]:.4f} ms "
+            f"events; bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+            "(medians of 20)")
     for L in K2_LANES:
         q, qd, u = inputs(L, 90)
-        k2_ms[L] = cuda_ms(lambda: lanes.fd_kernel(dyn.packed(q), 6, q, qd, u))
+        call = lambda: lanes.fd_kernel(dyn.packed(q), 6, q, qd, u)
+        t_ev, t_dev = events_ms(call), device_ms(call)
         bnd, by = lane_bound("fd", L)
-        log(f"[time] fd L={L}: kernel {k2_ms[L]:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}), {100 * bnd / k2_ms[L]:.1f}% of bound (median of 20, "
-            "device time)")
+        log(f"[time] fd L={L}: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
+            f"device; bound {bnd:.4f} ms ({by}), {100 * bnd / t_dev:.1f}% of "
+            "bound in device time (medians of 20)")
     S, b = random_systems(torch, BT, B, N, PCG_BS, 91, 1.0, f32, dev)
     ops = FP.pack_operands(S, b, "SS")
     kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
-    plain_ms["pcg"] = cuda_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
-    ms["pcg"] = cuda_ms(lambda: FP.pcg_fused_kernel(*ops, **kw))
+    plain_ms["pcg"] = events_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
+    ms["pcg"] = events_ms(lambda: FP.pcg_fused_kernel(*ops, **kw))
+    dev_ms["pcg"] = device_ms(lambda: FP.pcg_fused_kernel(*ops, **kw))
     # at tol = 0 every scenario runs the 40 iterations: one scenario's count
     # is every scenario's
     pcg_ops = B * opcount.count_pcg(*(t[:1] for t in ops), ss=True,
@@ -234,9 +235,10 @@ def main():
     bounds["pcg"] = (1e3 * max(by_ops, by_bytes),
                      "operations" if by_ops >= by_bytes else "bytes")
     log(f"[time] pcg B={B} N={N} bs={PCG_BS} SS 40 iterations: kernel "
-        f"{ms['pcg']:.4f} ms, plain {plain_ms['pcg']:.4f} ms, bound "
-        f"{bounds['pcg'][0]:.4f} ms ({bounds['pcg'][1]}; {pcg_ops} operations, "
-        f"{pcg_bytes} bytes) (median of 20, device time)")
+        f"{ms['pcg']:.4f} ms events, {dev_ms['pcg']:.4f} ms device; plain "
+        f"{plain_ms['pcg']:.4f} ms events; bound {bounds['pcg'][0]:.4f} ms "
+        f"({bounds['pcg'][1]}; {pcg_ops} operations, {pcg_bytes} bytes) "
+        "(medians of 20)")
 
     # ---- 5. in-situ: the flagship's KKT blocks and one solve, kernels on/off
     x0s_np, goals_np = F.bench_scenarios(B)
@@ -289,20 +291,25 @@ def main():
     assert finite
     assert res.X_applied.shape == (B, 12, STEPS + 1)
     assert gate_ok
-    episode_weighted(torch, kernels, inputs, by_lanes, "[main]")
+    episode_weighted(kernels, inputs, by_lanes, lane_bound, device_ms,
+                     "[main]")
 
     # ---- 7. the PCG-SS closed loop through K4
     pcg_counts = pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched)
     counts["pcg"] = pcg_counts["pcg"]
-    log(f"[pcg] K4 episode-weighted time: {pcg_counts['pcg']} launches x "
-        f"{ms['pcg']:.4f} ms (40 fixed iterations, an upper bound on the "
-        f"episode's) = {pcg_counts['pcg'] * ms['pcg']:.2f} ms")
+    k4 = pcg_counts["pcg"]
+    log(f"[pcg] K4 episode-weighted device time: {k4} launches x "
+        f"{dev_ms['pcg']:.4f} ms (40 fixed iterations, an upper bound on the "
+        f"episode's) = {k4 * dev_ms['pcg']:.2f} ms; bound {k4} x "
+        f"{bounds['pcg'][0]:.4f} ms = {k4 * bounds['pcg'][0]:.2f} ms; loss "
+        f"{k4 * (dev_ms['pcg'] - bounds['pcg'][0]):.2f} ms")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"trajoptmpcreference_tpu_torch/kernels/csrc/{name}.cu",
          "replaces": REPLACES[name], "launches": counts[name],
          "max_abs_err": max_abs[name], "ms": ms[name],
+         "device_ms": dev_ms[name],
          "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
         for name in REPLACES]}))
@@ -332,20 +339,23 @@ def record_lane_counts(lanes, K):
     return seen, restore
 
 
-def episode_weighted(torch, kernels, inputs, by_lanes, tag):
-    """Print each lanes kernel's launches by lane count and its episode-
-    weighted time: the sum over lane counts of launches x the kernel's time
-    at that count (median of 20, device time, random inputs)."""
+def episode_weighted(kernels, inputs, by_lanes, lane_bound, device_ms, tag):
+    """Print each lanes kernel's launches by lane count, its episode-
+    weighted device time and bound (the sums over lane counts of launches x
+    the kernel's device time, median of 20 on random inputs, and of
+    launches x its bound at that count) and the loss between them."""
     for name, (kern, _, _) in kernels.items():
         split = sorted((L, c) for (lib, L), c in by_lanes.items() if lib == name)
-        total, parts = 0.0, []
+        total, bound, parts = 0.0, 0.0, []
         for L, c in split:
             q, qd, u = inputs(L, 95)
-            t = cuda_ms(lambda: kern(q, qd, u))
+            t = device_ms(lambda: kern(q, qd, u))
             total += c * t
+            bound += c * lane_bound(name, L)[0]
             parts.append(f"{c} x L={L} at {t:.4f} ms")
         log(f"{tag} {name} launches by lane count: " + ", ".join(parts)
-            + f"; episode-weighted time {total:.2f} ms")
+            + f"; episode-weighted device time {total:.2f} ms, bound "
+            f"{bound:.2f} ms, loss {total - bound:.2f} ms")
 
 
 def random_systems(torch, BT, B, N, bs, seed, sign, dtype, dev):

@@ -12,8 +12,10 @@ reductions in another order).  K2 runs as a thread group per lane: its
 host build runs each phase for the group's G threads in turn, once in
 order and once in reverse (a phase in which one thread read what another
 wrote would give another answer), over whole blocks of lanes with a
-ragged tail.  The kernels' shared-memory carves are held to the wrappers'
-formulas, and the operation counts behind chip_smoke.py's bounds
+ragged tail.  K2's shared-memory size comes from its own formula, which
+the wrapper reads from the library.  The functions behind chip_smoke.py's
+bounds (kernels/needed_ops.cpp: K1-K3 once more, each value computed
+once) are held to the plain versions too, and the operation counts
 (kernels/opcount.py) to the loops' structure.  It does not check that the
 kernels build with nvcc or launch: chip_smoke.py does that on the card."""
 
@@ -63,20 +65,29 @@ def host_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
     procs = {}
-    # K2 a second time, its group's threads run in reverse order
-    builds = [(name, name, []) for name in _build.LIBRARIES]
-    builds.append(("fd_reversed", "fd", ["-DTMR_FD_REVERSE_TIDS"]))
-    for key, name, flags in builds:
+    # K2 a second time, its group's threads run in reverse order; and the
+    # functions as counted for the bounds
+    builds = [(name, _build.CSRC / f"{name}.cu", []) for name in _build.LIBRARIES]
+    builds.append(("fd_reversed", _build.CSRC / "fd.cu", ["-DTMR_FD_REVERSE_TIDS"]))
+    builds.append(("needed", opcount.NEEDED, []))
+    for key, src, flags in builds:
         so = out / f"lib{key}.so"
         procs[key] = (subprocess.Popen(
             ["g++", "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-             *flags, "-o", str(so), str(_build.CSRC / f"{name}.cu")],
+             *flags, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     for key, (proc, so) in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, log
-        name = key.replace("_reversed", "")
         lib = ctypes.CDLL(str(so))
+        if key == "needed":
+            for name in ("fd", "fd_grad", "task_vec"):
+                fn = getattr(lib, f"need_{name}_f64")
+                fn.argtypes = _build.ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                libs[f"needed_{name}"] = fn
+            continue
+        name = key.replace("_reversed", "")
         fn = getattr(lib, f"tmr_{name}_f64")
         fn.argtypes = _build.ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -132,8 +143,9 @@ def test_host_compiled_kernels_match_plain(spec, host_libs, tmp_path):
 
 
 K2_SPECS = [f"arm{n}" for n in range(1, 8)] + ["rpr", "ytree"]
-# one lane, an odd count inside one block, and a ragged last block
-K2_LANES = [1, 11, 2 * lanes.FD_LANES_PER_BLOCK + 5]
+# one lane, an odd count inside one block, and a ragged last block (fd.cu
+# runs 16 lanes per block: 37 is two blocks and 5 lanes)
+K2_LANES = [1, 11, 37]
 
 
 @pytest.mark.parametrize("order", ["fd", "fd_reversed"])
@@ -152,36 +164,64 @@ def test_host_compiled_fd_groups_match_plain(spec, L, order, host_libs,
                                atol=1e-9, rtol=0)
 
 
+# the shared memory of one Hopper SM: two K2 blocks must fit on one
+SM_SMEM = 233_472
+
+
 @pytest.mark.parametrize("n", range(1, 8))
 def test_host_compiled_fd_shared_memory_size(n, host_libs):
-    """K2's shared-memory carve (fd.cu smem_elems) equals the wrapper's
-    formula, and every supported n fits one block."""
+    """The wrapper's size is the kernel's own formula (fd.cu
+    tmr_fd_smem_elems, read through the library), and for every supported
+    n two blocks fit on an SM in f32 and in f64."""
     elems = host_libs["fd_smem_elems"](n)
-    assert lanes.fd_smem_bytes(n, torch.float64) == 8 * elems
-    assert lanes.fd_smem_bytes(n, torch.float32) == 4 * elems
-    lanes.check_fd_fits(n, torch.float64)
+    for dt in (torch.float32, torch.float64):
+        size = lanes.fd_smem_bytes(n, dt, host_libs["fd_smem_elems"])
+        assert size == dt.itemsize * elems
+        assert 2 * size <= SM_SMEM
+        lanes.check_fd_fits(n, dt, host_libs["fd_smem_elems"])
 
 
-def test_fd_wrapper_refuses_a_block_over_the_shared_memory_limit():
-    n = 24
-    assert lanes.fd_smem_bytes(n, torch.float64) > lanes.SMEM_LIMIT
-    q = torch.zeros((n, 3), dtype=torch.float64)
-    packed = torch.zeros(lanes.HEADER + n * lanes.JOINT_STRIDE,
-                         dtype=torch.float64)
+def test_fd_wrapper_refuses_a_block_over_the_shared_memory_limit(host_libs):
+    n, smem = 24, host_libs["fd_smem_elems"]
+    assert lanes.fd_smem_bytes(n, torch.float64, smem) > lanes.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        lanes.fd_kernel(packed, n, q, q, q)
+        lanes.check_fd_fits(n, torch.float64, smem)
+
+
+@pytest.mark.parametrize("spec", K2_SPECS)
+def test_needed_operations_compute_the_functions(spec, host_libs, tmp_path):
+    """kernels/needed_ops.cpp, whose operations give the lanes kernels'
+    bounds, computes K1-K3's functions: in f64 against the plain
+    versions."""
+    robot = _robot(spec, tmp_path)
+    n, L = robot.n, 5
+    rng = np.random.default_rng(7 * n + 1)
+    q, qd, u = (torch.tensor(rng.standard_normal((n, L))) for _ in range(3))
+    fd = _run(host_libs["needed_fd"], robot, q, qd, u, (n, L))
+    np.testing.assert_allclose(fd, lanes.fd_lanes(robot, q, qd, u),
+                               atol=1e-9, rtol=0)
+    fdg = _run(host_libs["needed_fd_grad"], robot, q, qd, u, (n, 3 * n, L))
+    np.testing.assert_allclose(fdg, lanes.fd_grad_lanes(robot, q, qd, u),
+                               atol=1e-9, rtol=0)
+    kin = LaneKinematics(robot)
+    tv = _run(host_libs["needed_task_vec"], robot, q, qd, u, (2 * kin.k, L))
+    np.testing.assert_allclose(tv, kin.task_vec_L(q, qd), atol=1e-12, rtol=0)
 
 
 def test_operation_counts_follow_the_code():
-    """kernels/opcount.py: the lanes kernels' counts per lane are whole
-    numbers, K2's group design does fewer operations than its dense first
-    design, and a PCG iteration costs the same every time."""
+    """kernels/opcount.py: the counts per lane are whole numbers, each
+    function needs fewer operations than its kernel does (which repeats
+    values across a group's threads or uses dense transforms), K1's
+    function contains K2's, and a PCG iteration costs the same every
+    time."""
     packed = lanes.pack_robot(serial_arm(6), torch.float64, "cpu")
-    counts = {k: opcount.count_lanes(k, packed, 6)
-              for k in ("fd", "fd_grad", "task_vec")}
-    assert all(float(c).is_integer() and c > 0 for c in counts.values())
-    assert counts["task_vec"] < counts["fd"] < opcount.count_fd_dense(
-        packed, 6) < counts["fd_grad"]
+    names = ("fd", "fd_grad", "task_vec")
+    done = {k: opcount.count_lanes(k, packed, 6) for k in names}
+    need = {k: opcount.count_needed(k, packed, 6) for k in names}
+    for k in names:
+        assert float(need[k]).is_integer() and 0 < need[k] < done[k], k
+        assert float(done[k]).is_integer(), k
+    assert need["task_vec"] < need["fd"] < need["fd_grad"]
     ops = _pcg_problem(2, 8, 12, seed=3, precond="SS")
     kw = dict(ss=True, relative=False, tol=0.0)
     c0, c10, c20 = (opcount.count_pcg(*ops, max_iter=k, **kw)

@@ -121,6 +121,9 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"tmr_{name}_{suffix}")
             fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
+        if name == "fd":   # K2's shared memory per block, in values
+            lib.tmr_fd_smem_elems.argtypes = [_I]
+            lib.tmr_fd_smem_elems.restype = ctypes.c_longlong
         _loaded[name] = lib
     return _loaded[name]
 

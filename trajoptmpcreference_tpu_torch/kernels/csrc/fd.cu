@@ -36,8 +36,8 @@
 //   along lanes; the ragged tail (lane >= L) is masked.
 // A block needs smem_elems(n) values of dynamic shared memory (28,176
 // bytes in f32 at n = 6, 56,352 in f64); the launch opts in with
-// cudaFuncSetAttribute, and ops/lanes.py computes the same size from the
-// same formula (tmr_fd_smem_elems) and refuses a size over the limit.
+// cudaFuncSetAttribute, and ops/lanes.py reads the same size through
+// tmr_fd_smem_elems and refuses a size over the limit.
 // What holds it back now is the instruction count: each warp instruction
 // serves four lanes, and a phase's jobs of different kinds run one after
 // another (PERF.md).

@@ -1,15 +1,23 @@
-"""Count the floating-point operations of the kernels' own arithmetic.
+"""Count floating-point operations by compiling C++ over a counting scalar.
 
-Each ``csrc/*.cu`` compiles as plain C++ (no ``__CUDACC__``) into a host
-loop over the very device functions the card runs.  Compiled here over a
-scalar type that counts every +, -, * and / (and each sin or cos, as one
-operation; a sign flip is not counted), that loop reports the operations
-the kernel does on given inputs, per lane or per scenario.  These counts
-give each kernel's bound (operations over the card's peak rate) in
-chip_smoke.py.  A multiply-add counts as two.
+A scalar type that counts every +, -, * and / (and each sin or cos, as one
+operation; a sign flip is not counted) stands in for float.  Two things are
+counted with it:
 
-    count_lanes("fd", packed, n)         # per lane, K1-K3
-    count_fd_dense(packed, n)            # K2's first design (lanes_common.cuh)
+* what a function needs (``count_needed``): ``needed_ops.cpp`` writes K1-K3's
+  functions once more, one thread per lane, each value computed once.
+  These counts give the lanes kernels' bounds (operations over the card's
+  peak rate) in chip_smoke.py;
+* what a kernel does (``count_lanes``, ``count_pcg``): each ``csrc/*.cu``
+  compiles as plain C++ (no ``__CUDACC__``) into a host loop over the very
+  device functions the card runs, every thread of a group included.  K4's
+  host loop runs each scenario once, serially, so its count is also its
+  need and gives its bound.
+
+A multiply-add counts as two.
+
+    count_needed("fd", packed, n)        # per lane, K1-K3's functions
+    count_lanes("fd", packed, n)         # per lane, K1-K3 as written
     count_pcg(diag_p, upper, pdiag_p, r0, ss=..., ...)   # per call, K4
 
 The host compiler is ``g++`` (the CUDA toolkit needs one); the libraries
@@ -19,7 +27,9 @@ go to ``<repo>/build/opcount/<hash>/``.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import pathlib
 import shutil
 import subprocess
 from typing import Dict
@@ -75,35 +85,6 @@ extern "C" long long count_lanes(const double* q, const double* qd,
 }
 """
 
-_FD_DENSE_ENTRY = r"""
-template <int N>
-void dense_lanes(const Num* Q, const Num* QD, const Num* U, const Num* C,
-                 int L) {
-  const tmr::Robot<Num> R{C};
-  for (int lane = 0; lane < L; ++lane) {
-    Num q[N], qd[N], u[N], qdd[N], X[N][36], M[N][N];
-    for (int j = 0; j < N; ++j) {
-      q[j] = Q[j * L + lane];
-      qd[j] = QD[j * L + lane];
-      u[j] = U[j * L + lane];
-    }
-    tmr::forward_dynamics<Num, N>(R, q, qd, u, X, M, qdd);
-  }
-}
-
-extern "C" long long count_fd_dense(const double* q, const double* qd,
-                                    const double* u, const double* c, int nc,
-                                    int n, int L) {
-  std::vector<Num> Q = nums(q, (size_t)n * L), QD = nums(qd, (size_t)n * L),
-                   U = nums(u, (size_t)n * L), C = nums(c, nc);
-  tmr_count::ops = 0;
-#define TMR_DENSE(NN) dense_lanes<NN>(Q.data(), QD.data(), U.data(), C.data(), L)
-  TMR_SWITCH_N(n, TMR_DENSE)
-#undef TMR_DENSE
-  return tmr_count::ops;
-}
-"""
-
 _PCG_ENTRY = r"""
 extern "C" long long count_pcg(const double* d, const double* up,
                                const double* pd, const double* r0, int B,
@@ -134,16 +115,24 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+NEEDED = pathlib.Path(__file__).resolve().parent / "needed_ops.cpp"
+_COUNTED = _build.LIBRARIES + ("needed",)
+_WHICH = {"fd": 0, "fd_grad": 1, "task_vec": 2}   # needed_ops.cpp Which
+
+
 def _source(name: str) -> str:
+    if name == "needed":
+        return _PRELUDE + f'#define TMR_NEED_COUNT\n#include "{NEEDED}"\n'
     body = _PRELUDE + f'#include "{_build.CSRC / (name + ".cu")}"\n'
     if name == "pcg":
         return body + _PCG_ENTRY
-    body += _LANES_ENTRY.replace("CALL", _CALLS[name])
-    return body + (_FD_DENSE_ENTRY if name == "fd" else "")
+    return body + _LANES_ENTRY.replace("CALL", _CALLS[name])
 
 
 def _out_dir():
-    return _build.BUILD_ROOT.parent / "opcount" / _build.source_hash()
+    h = hashlib.sha256((_build.source_hash() + _PRELUDE).encode())
+    h.update(NEEDED.read_bytes())
+    return _build.BUILD_ROOT.parent / "opcount" / h.hexdigest()[:16]
 
 
 def build_all() -> None:
@@ -156,7 +145,7 @@ def build_all() -> None:
     out = _out_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in _build.LIBRARIES:
+    for name in _COUNTED:
         so = out / f"lib{name}_count.so"
         if so.exists():
             continue
@@ -183,12 +172,12 @@ def _library(name: str) -> ctypes.CDLL:
         if name == "pcg":
             lib.count_pcg.argtypes = [_P] * 4 + [_I] * 6 + [_D]
             lib.count_pcg.restype = ctypes.c_longlong
+        elif name == "needed":
+            lib.need_count.argtypes = [_I] + [_P] * 4 + [_I] * 4
+            lib.need_count.restype = ctypes.c_longlong
         else:
             lib.count_lanes.argtypes = [_P] * 4 + [_I] * 4
             lib.count_lanes.restype = ctypes.c_longlong
-            if name == "fd":
-                lib.count_fd_dense.argtypes = [_P] * 4 + [_I] * 3
-                lib.count_fd_dense.restype = ctypes.c_longlong
         _loaded[name] = lib
     return _loaded[name]
 
@@ -223,13 +212,18 @@ def count_lanes(name: str, packed, n: int) -> float:
     return ops / L
 
 
-def count_fd_dense(packed, n: int) -> float:
-    """Operations per lane of K2's first design: one thread per lane over
-    lanes_common.cuh ``forward_dynamics`` (dense 6x6 transforms)."""
+def count_needed(name: str, packed, n: int) -> float:
+    """Operations per lane that the function of kernel ``name`` (fd,
+    fd_grad, task_vec) needs for the robot packed in ``packed``
+    (needed_ops.cpp: one thread per lane, each value once).  What it skips
+    depends on the robot's structure, not on the lane, so a few random
+    lanes give the count of every lane."""
     q, qd, u, c, L = _lanes_inputs(packed, n)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    return _library("fd").count_fd_dense(ptr(q), ptr(qd), ptr(u), ptr(c),
-                                         c.size, n, L) / L
+    ops = _library("needed").need_count(_WHICH[name], ptr(q), ptr(qd),
+                                        ptr(u), ptr(c), c.size, n, L,
+                                        _OUT_ROWS[name](n))
+    return ops / L
 
 
 def count_pcg(diag_p, upper, pdiag_p, r0, *, ss: bool, relative: bool,

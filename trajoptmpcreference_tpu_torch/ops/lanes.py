@@ -28,11 +28,10 @@ thread-group-per-scenario layout (GRiD) is later work.
 
 K2 — replaces ``_pallas_fd`` (kernels/csrc/fd.cu): RNEA + Minv + the qdd
 contraction per lane.  Its traffic is 3n values in and n out per lane; its
-operations bound it.  A group of ``FD_GROUP`` threads shares each lane's
-recursion, ``FD_LANES_PER_BLOCK`` lanes per block: each Minv column lives in
-its own thread's registers, the rest of the state in shared memory;
-``fd_smem_bytes`` is the block's size, the same formula as the kernel's
-``smem_elems``.
+operations bound it.  A group of threads shares each lane's recursion,
+several lanes per block: each Minv column lives in its own thread's
+registers, the rest of the state in shared memory; ``fd_smem_bytes`` is the
+block's size, from the kernel's own formula (``tmr_fd_smem_elems``).
 """
 
 from __future__ import annotations
@@ -427,38 +426,35 @@ def launch(lib_name: str, n: int, packed, out, q, qd, u=None) -> None:
         raise RuntimeError(f"CUDA kernel {lib_name} failed: cudaError {rc}")
 
 
-# K2's launch shape (kernels/csrc/fd.cu G and LANES) and the opt-in shared
-# memory of one thread block on Hopper (227 KB)
-FD_GROUP = 8
-FD_LANES_PER_BLOCK = 16
+# the opt-in shared memory of one thread block on Hopper (227 KB)
 SMEM_LIMIT = 232_448
 
 
-def fd_smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one K2 block: the packed robot buffer and
-    each lane's recursion state, padded to 8 mod 32 values (fd.cu
-    ``smem_elems``)."""
-    e = 51 * n + n * n + 42
-    lane = e + (40 - e % 32) % 32
-    return dtype.itemsize * (HEADER + n * JOINT_STRIDE
-                             + FD_LANES_PER_BLOCK * lane)
+def fd_smem_bytes(n: int, dtype: torch.dtype, smem_elems=None) -> int:
+    """Dynamic shared memory of one K2 block: fd.cu's own formula,
+    ``tmr_fd_smem_elems`` (values per block), from the built library
+    unless another build's entry is given."""
+    if smem_elems is None:
+        from trajoptmpcreference_tpu_torch.kernels import _build
+        smem_elems = _build.library("fd").tmr_fd_smem_elems
+    return dtype.itemsize * int(smem_elems(n))
 
 
-def check_fd_fits(n: int, dtype: torch.dtype) -> None:
+def check_fd_fits(n: int, dtype: torch.dtype, smem_elems=None) -> None:
     """Raise ValueError when a K2 block for n joints does not fit the
     shared memory of one thread block."""
-    need = fd_smem_bytes(n, dtype)
+    need = fd_smem_bytes(n, dtype, smem_elems)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"K2 keeps {FD_LANES_PER_BLOCK} lanes' recursions in shared "
-            f"memory: n={n} in {dtype} needs {need} bytes, over the "
-            f"{SMEM_LIMIT}-byte limit of one thread block")
+            f"K2 keeps a block's lanes' recursions in shared memory: n={n} "
+            f"in {dtype} needs {need} bytes, over the {SMEM_LIMIT}-byte "
+            "limit of one thread block")
 
 
 def fd_kernel(packed: torch.Tensor, n: int, q, qd, u):
     """K2 on the card: (n, L) x3 -> qdd (n, L)."""
-    check_fd_fits(n, q.dtype)
     L = check_lanes(n, packed, q, qd, u)
+    check_fd_fits(n, q.dtype)
     out = torch.empty((n, L), dtype=q.dtype, device=q.device)
     if L:
         launch("fd", n, packed, out, q, qd, u)
