@@ -11,7 +11,8 @@ Phases (each prints its own numbers; any failure exits non-zero):
    whose counts give their bounds, and the kernels' own sources;
 3. each of K1-K3 against its plain PyTorch version on the card, f32, at
    the main path's lane counts and a ragged one (K2 at all four of its
-   lane counts, 512 to 290,304); K4 (the fused PCG)
+   lane counts, 512 to 290,304; K1 also at 1 and 17 lanes, ragged blocks
+   of its 16, and in f64 at 1,000 and 32,256); K4 (the fused PCG)
    against its plain version for J, BJ and SS on SPD and negative-definite
    systems at B = 512, N = 64, bs = 12 (20 fixed iterations, and run to
    convergence against cyclic reduction), on ragged batches, in f64, and
@@ -23,8 +24,11 @@ Phases (each prints its own numbers; any failure exits non-zero):
    larger of bytes / 3.35 TB/s and needed operations / 67 TFLOP/s (f32 off
    the tensor cores), the H100 SXM data sheet's peaks at 700 W;
 5. in-situ: one KKT assembly and one full SQP solve of the flagship with
-   the kernels on vs off; K4 and its plain version on the flagship's
-   cold-start Schur systems (relative residuals, iteration counts);
+   the kernels on vs off, in f32 (max|dU| reported) and in f64 (equal exit
+   codes and iteration counts, max|dU|/max|U| under SOLVE_BAR, each side's
+   accepted line-search rungs compared); K4 and its plain version on the
+   flagship's cold-start Schur systems (relative residuals, iteration
+   counts);
 6. the main path: the flagship closed loop (6-DoF arm, N = 64, B = 512
    scenarios of bench.py, f32): one cold block-Thomas step, then 149
    cyclic-reduction steps through run_scheduled, with the kernels' launch
@@ -33,13 +37,16 @@ Phases (each prints its own numbers; any failure exits non-zero):
    the loss between them, and the bench's quality gate;
 7. the PCG-SS closed loop (flagship.PCG_KNOBS, K4 on): the same episode
    with 4 SQP iterations per step and the Schur systems solved by PCG-SS,
-   with K1-K4's launch counts and the quality gate.
+   with K1-K4's launch counts and the quality gate; its states are finite,
+   but for a scenario that ran away (|x| past RUNAWAY) before the f32
+   simulation overflowed.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
 """
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -59,6 +66,19 @@ K2_LANES = [L_SIM, L_RAGGED, L_MAIN, L_LADDER, L_COLD]
 # H100 SXM peaks (data sheet, 700 W): f32 off the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 TOL = {"fd_grad": 1e-4, "fd": 1e-4, "task_vec": 1e-5}   # the JAX package's own
+# K1 in f64 against fd_grad_lanes in f64: the same function, sums in another
+# order
+TOL_F64 = 1e-10
+K1_LANES_F64 = [L_RAGGED, L_MAIN]
+# the f64 kernels-on/off solve: max|dU|/max|U| under SOLVE_BAR, or under
+# SOLVE_FLOOR_X times the gap that a one-ulp change of the plain outputs
+# makes, whichever is larger: the cold Schur systems amplify rounding alone
+# to ~1e-6 (PERF.md section 6)
+SOLVE_BAR = 1e-6
+SOLVE_FLOOR_X = 10
+# |x| past which a closed-loop scenario has run away (an arm spun up): the
+# PCG-SS loop may then overflow f32 (phase 7)
+RUNAWAY = 1e3
 # K4 vs its plain version, f32: max|d|/max|ref| after 20 fixed iterations,
 # and each scenario's max|x - x_cr|/max|x_cr| after running to convergence
 PCG_TOL, PCG_BS, PCG_FIXED_ITERS = 1e-4, 12, 20
@@ -128,12 +148,14 @@ def main():
         + f"; dir {_build.build_dir()}")
     for name in ("fd", "fd_grad", "task_vec"):
         extra = ""
-        if name == "fd":
+        if name in ("fd", "fd_grad"):
             extra = ("; dynamic shared memory per block at n=6: "
-                     f"{lanes.fd_smem_bytes(6, torch.float32)} bytes f32, "
-                     f"{lanes.fd_smem_bytes(6, torch.float64)} bytes f64")
+                     f"{lanes.smem_bytes(name, 6, torch.float32)} bytes f32, "
+                     f"{lanes.smem_bytes(name, 6, torch.float64)} bytes f64")
         log(f"[ptxas] {name} (f32, n=6): "
             + ptxas_summary(_build.ptxas_report(name), "IfLi6E") + extra)
+    log("[ptxas] fd_grad (f64, n=6): "
+        + ptxas_summary(_build.ptxas_report("fd_grad"), "IdLi6E"))
     for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
         key = "pcg_kernelI" + ("f" if tag == "f32" else "d") + "E"
         log(f"[ptxas] pcg ({tag}): "
@@ -154,7 +176,7 @@ def main():
     kernels = {
         "fd_grad": (lambda q, qd, u: lanes.fd_grad_kernel(dyn.packed(q), 6, q, qd, u),
                     lambda q, qd, u: lanes.fd_grad_lanes(robot, q, qd, u, consts=dyn.consts(q)),
-                    [L_MAIN, L_RAGGED]),
+                    [1, 17, L_RAGGED, L_MAIN]),
         "fd": (lambda q, qd, u: lanes.fd_kernel(dyn.packed(q), 6, q, qd, u),
                lambda q, qd, u: lanes.fd_lanes(robot, q, qd, u, consts=dyn.consts(q)),
                K2_LANES),
@@ -177,6 +199,18 @@ def main():
             log(f"[check] {name} L={L}: max|d|/max|ref| = {rel:.3e} "
                 f"(limit {TOL[name]:.0e})")
             assert rel < TOL[name], (name, L, rel)
+    kern, plain, _ = kernels["fd_grad"]
+    for i, L in enumerate(K1_LANES_F64):
+        q, qd, u = (t.double() for t in inputs(L, 84 + i))
+        out, ref = kern(q, qd, u), plain(q, qd, u)
+        torch.cuda.synchronize()
+        assert out.dtype == ref.dtype == torch.float64
+        assert bool(torch.isfinite(out).all())
+        rel = rel_err(out, ref)
+        del out, ref
+        log(f"[check] fd_grad f64 L={L}: max|d|/max|ref| = {rel:.3e} "
+            f"(limit {TOL_F64:.0e})")
+        assert rel < TOL_F64, (L, rel)
 
     max_abs["pcg"] = check_pcg(torch, BT, FP, dev)
 
@@ -261,9 +295,10 @@ def main():
     for on, (plant, cost, solver) in solvers.items():
         sols[on] = solver.solve(X0, U0, cost.default_params._replace(xg=goals))
     dU = float((sols[True].U - sols[False].U).abs().max())
-    log(f"[in-situ] solve kernels on vs off: max|dU| = {dU:.3e} (reported), "
-        f"exit codes on {sols[True].exit_sqp.bincount().tolist()} off "
-        f"{sols[False].exit_sqp.bincount().tolist()}")
+    log(f"[in-situ] solve kernels on vs off, f32: max|dU| = {dU:.3e} "
+        f"(reported), exit codes on {sols[True].exit_sqp.bincount().tolist()} "
+        f"off {sols[False].exit_sqp.bincount().tolist()}")
+    solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev)
 
     insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev)
 
@@ -431,6 +466,116 @@ def check_pcg(torch, BT, FP, dev):
     return max_abs
 
 
+def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
+    """The flagship's cold solve (phase 5's) in f64 on the card with the
+    kernels on and off, and off once more with the plain versions' outputs
+    moved by one ulp (``one_ulp_plain``): the gap that rounding alone makes
+    after the solve's amplification, the floor of what on/off can show.
+    Asserts equal exit codes and outer iteration counts and max|dU|/max|U|
+    under SOLVE_BAR or SOLVE_FLOOR_X times that floor, whichever is larger;
+    records each line search's accepted rung and ratio on both sides, so
+    that a rung chosen otherwise on a near-tie shows beside the scenarios
+    it moved."""
+    f64 = torch.float64
+    x0s = torch.as_tensor(x0s_np, dtype=f64, device=dev)
+    goals = torch.as_tensor(goals_np, dtype=f64, device=dev)
+    X0 = x0s[..., None].expand(B, 12, N).contiguous()
+    U0 = torch.zeros((B, 6, N - 1), dtype=f64, device=dev)
+    sols, rungs = {}, {}
+    for key, on in (("on", True), ("off", False), ("ulp", False)):
+        _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, use_kernels=on)
+        moved = one_ulp_plain(torch, lanes, K, dev) if key == "ulp" \
+            else contextlib.nullcontext()
+        with moved, record_line_search(type(solver)) as rungs[key]:
+            sols[key] = solver.solve(X0, U0, cost.default_params._replace(xg=goals))
+    b = sols["off"]
+    scale = b.U.abs().max()
+
+    def gap(key):
+        dU = (sols[key].U - b.U).abs()
+        per = dU.amax((1, 2)) / b.U.abs().amax((1, 2)).clamp_min(1e-300)
+        return float(dU.max() / scale), per
+
+    rel, per = gap("on")
+    floor, per_floor = gap("ulp")
+    bar = max(SOLVE_BAR, SOLVE_FLOOR_X * floor)
+    a = sols["on"]
+    flips = [(k, int(sc)) for k, ((ia, _), (ib, _)) in
+             enumerate(zip(rungs["on"], rungs["off"]))
+             for sc in torch.nonzero(ia != ib).flatten().tolist()]
+    log(f"[in-situ] solve kernels on vs off, f64: max|dU|/max|U| = {rel:.3e}, "
+        f"worst scenario {float(per.max()):.3e}, median "
+        f"{float(per.median()):.3e}; off vs off with the plain outputs moved "
+        f"one ulp: {floor:.3e}, worst {float(per_floor.max()):.3e}, median "
+        f"{float(per_floor.median()):.3e}; bar {bar:.3e} (max of "
+        f"{SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap)")
+    log(f"[in-situ] f64 on vs off: exit codes equal "
+        f"{torch.equal(a.exit_sqp, b.exit_sqp)}, outer iterations equal "
+        f"{torch.equal(a.outer_iters, b.outer_iters)}, SQP iterations equal "
+        f"{torch.equal(a.sqp_iters, b.sqp_iters)}; line searches "
+        f"{len(rungs['on'])} on, {len(rungs['off'])} off; accepted rungs "
+        f"differ in {len(flips)} (search, scenario) pairs on vs off, "
+        f"{sum(int((ia != ib).sum()) for (ia, _), (ib, _) in zip(rungs['ulp'], rungs['off']))} "
+        "off vs one ulp")
+    for k, sc in flips[:8]:
+        (ia, ra), (ib, rb) = rungs["on"][k], rungs["off"][k]
+        log(f"[in-situ]   search {k} scenario {sc}: rung {int(ia[sc])} "
+            f"(ratio {float(ra[sc]):.6e}) on, {int(ib[sc])} (ratio "
+            f"{float(rb[sc]):.6e}) off; the scenario's max|dU|/max|U| "
+            f"{float(per[sc]):.3e}")
+    assert torch.equal(a.exit_sqp, b.exit_sqp)
+    assert torch.equal(a.outer_iters, b.outer_iters)
+    assert rel < bar, (rel, bar)
+
+
+@contextlib.contextmanager
+def one_ulp_plain(torch, lanes, K, dev):
+    """While in the block, the plain versions of K1-K3 (their kernels'
+    flags off) return their outputs times 1 + s 2^-52, s = +-1 per element
+    from a fixed seed: the size of the rounding by which the kernels'
+    outputs differ from them."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    patched = ((lanes.LaneDynamics, "fd", "use_kernel_fd"),
+               (lanes.LaneDynamics, "fd_grad", "use_kernel_fd_grad"),
+               (K.LaneKinematics, "task_vec", "use_kernel_task"))
+    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in patched]
+
+    def moved(fn, flag):
+        def call(self, *args):
+            out = fn(self, *args)
+            if getattr(self, flag):
+                return out
+            s = torch.randint(0, 2, out.shape, generator=gen, device=dev)
+            return out * (1 + (2 * s - 1).to(out.dtype) * 2.0 ** -52)
+        return call
+
+    for (cls, name, flag), (_, _, fn) in zip(patched, saved):
+        setattr(cls, name, moved(fn, flag))
+    try:
+        yield
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+@contextlib.contextmanager
+def record_line_search(cls):
+    """While in the block, keep each ``cls.line_search`` call's accepted
+    rung and ratio per scenario in the list it yields."""
+    seen, search = [], cls.line_search
+
+    def recording(self, *args, **kwargs):
+        res = search(self, *args, **kwargs)
+        seen.append((res.ls_iter.clone(), res.ratio.clone()))
+        return res
+
+    cls.line_search = recording
+    try:
+        yield seen
+    finally:
+        cls.line_search = search
+
+
 def insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
     """K4 and its plain version on the flagship's cold-start Schur systems
     (the PCG-SS flagship's first QP at rho = 1e-3, relative exit 1e-4, 40
@@ -496,10 +641,30 @@ def pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched):
                     time.perf_counter() - t0, {}, "[pcg]",
                     f"PCG-SS flagship through btridiag.pcg, {COLD_STEPS} cold")
     assert all(v > 0 for v in counts.values()), counts
-    assert finite
+    assert finite or runaway_only(torch, res, "[pcg]")
     assert res.X_applied.shape == (B, 12, STEPS + 1)
     assert gate_ok
     return counts
+
+
+def runaway_only(torch, res, tag):
+    """Print each scenario whose applied states go non-finite: the step,
+    and the largest |x| of its finite steps before it.  True when every
+    one of them ran away past RUNAWAY first: an arm spun up by the closed
+    loop until the f32 simulation overflows, which bench.py's gate counts
+    as unstable (the plain versions' loop does it too), not a kernel's NaN
+    in a sane state."""
+    X = res.X_applied                          # (B, nx, steps + 1)
+    fin = torch.isfinite(X).all(1)
+    ok = True
+    for b in torch.nonzero(~fin.all(1)).flatten().tolist():
+        first = int(torch.nonzero(~fin[b]).min())
+        peak = float(X[b, :, :first].abs().max()) if first else 0.0
+        log(f"{tag} scenario {b}: states non-finite from step {first}; "
+            f"largest |x| before {peak:.3e} (runaway above {RUNAWAY:.0e}); "
+            f"controls finite {bool(torch.isfinite(res.U_applied[b]).all())}")
+        ok = ok and peak > RUNAWAY
+    return ok
 
 
 def report_loop(torch, F, plant, x0s, goals, res, wall, counts, tag, label):

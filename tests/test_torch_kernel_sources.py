@@ -8,12 +8,12 @@ PyTorch versions in f64 (atol 1e-9 on values up to ~1e3: the same
 recursions, sums reassociated) on serial arms of 1..7 joints, a branched
 tree and a prismatic joint; and K4's PCG against ``pcg_fused_plain`` in
 f64 (1e-10 of the solution's scale, equal iteration counts: the same loop,
-reductions in another order).  K2 runs as a thread group per lane: its
-host build runs each phase for the group's G threads in turn, once in
-order and once in reverse (a phase in which one thread read what another
-wrote would give another answer), over whole blocks of lanes with a
-ragged tail.  K2's shared-memory size comes from its own formula, which
-the wrapper reads from the library.  The functions behind chip_smoke.py's
+reductions in another order).  K1 and K2 run as a thread group per lane:
+their host builds run each phase for the group's G threads in turn, once
+in order and once in reverse (a phase in which one thread read what
+another wrote would give another answer), over whole blocks of lanes with
+a ragged tail.  Their shared-memory sizes come from their own formulas,
+which the wrapper reads from the libraries.  The functions behind chip_smoke.py's
 bounds (kernels/needed_ops.cpp: K1-K3 once more, each value computed
 once) are held to the plain versions too, and the operation counts
 (kernels/opcount.py) to the loops' structure.  It does not check that the
@@ -65,10 +65,12 @@ def host_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
     procs = {}
-    # K2 a second time, its group's threads run in reverse order; and the
-    # functions as counted for the bounds
+    # K2 and K1 a second time, their groups' threads run in reverse order;
+    # and the functions as counted for the bounds
     builds = [(name, _build.CSRC / f"{name}.cu", []) for name in _build.LIBRARIES]
-    builds.append(("fd_reversed", _build.CSRC / "fd.cu", ["-DTMR_FD_REVERSE_TIDS"]))
+    for name in ("fd", "fd_grad"):
+        builds.append((f"{name}_reversed", _build.CSRC / f"{name}.cu",
+                       ["-DTMR_GROUP_REVERSE_TIDS"]))
     builds.append(("needed", opcount.NEEDED, []))
     for key, src, flags in builds:
         so = out / f"lib{key}.so"
@@ -92,10 +94,11 @@ def host_libs(tmp_path_factory):
         fn.argtypes = _build.ARGTYPES[name]
         fn.restype = ctypes.c_int
         libs[key] = fn
-        if key == "fd":
-            libs["fd_smem_elems"] = lib.tmr_fd_smem_elems
-            lib.tmr_fd_smem_elems.argtypes = [ctypes.c_int]
-            lib.tmr_fd_smem_elems.restype = ctypes.c_longlong
+        if key in ("fd", "fd_grad"):
+            size = getattr(lib, f"tmr_{key}_smem_elems")
+            size.argtypes = [ctypes.c_int]
+            size.restype = ctypes.c_longlong
+            libs[f"{key}_smem_elems"] = size
         if name == "pcg":
             libs["pcg_smem_elems"] = lib.tmr_pcg_smem_elems
             lib.tmr_pcg_smem_elems.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -175,17 +178,61 @@ def test_host_compiled_fd_shared_memory_size(n, host_libs):
     n two blocks fit on an SM in f32 and in f64."""
     elems = host_libs["fd_smem_elems"](n)
     for dt in (torch.float32, torch.float64):
-        size = lanes.fd_smem_bytes(n, dt, host_libs["fd_smem_elems"])
+        size = lanes.smem_bytes("fd", n, dt, host_libs["fd_smem_elems"])
         assert size == dt.itemsize * elems
         assert 2 * size <= SM_SMEM
-        lanes.check_fd_fits(n, dt, host_libs["fd_smem_elems"])
+        lanes.check_fits("fd", n, dt, host_libs["fd_smem_elems"])
 
 
 def test_fd_wrapper_refuses_a_block_over_the_shared_memory_limit(host_libs):
     n, smem = 24, host_libs["fd_smem_elems"]
-    assert lanes.fd_smem_bytes(n, torch.float64, smem) > lanes.SMEM_LIMIT
+    assert lanes.smem_bytes("fd", n, torch.float64, smem) > lanes.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        lanes.check_fd_fits(n, torch.float64, smem)
+        lanes.check_fits("fd", n, torch.float64, smem)
+
+
+@pytest.mark.parametrize("order", ["fd_grad", "fd_grad_reversed"])
+@pytest.mark.parametrize("L", K2_LANES)
+@pytest.mark.parametrize("spec", K2_SPECS)
+def test_host_compiled_fd_grad_groups_match_plain(spec, L, order, host_libs,
+                                                  tmp_path):
+    """K1's phases (K2's, then the RNEA at qdd, the per-link terms and the
+    column-parallel dRNEA) at the card's group size G, thread by thread,
+    against fd_grad_lanes in f64."""
+    robot = _robot(spec, tmp_path)
+    n = robot.n
+    rng = np.random.default_rng(100 * n + L + 1)
+    q, qd, u = (torch.tensor(rng.standard_normal((n, L))) for _ in range(3))
+    out = _run(host_libs[order], robot, q, qd, u, (n, 3 * n, L))
+    np.testing.assert_allclose(out, lanes.fd_grad_lanes(robot, q, qd, u),
+                               atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("n", range(1, 8))
+def test_host_compiled_fd_grad_shared_memory_size(n, host_libs):
+    """K1's block size is its own formula (fd_grad.cu
+    tmr_fd_grad_smem_elems, read through the library), and for every
+    supported n two blocks fit on an SM in f32 and in f64."""
+    elems = host_libs["fd_grad_smem_elems"](n)
+    for dt in (torch.float32, torch.float64):
+        size = lanes.smem_bytes("fd_grad", n, dt, host_libs["fd_grad_smem_elems"])
+        assert size == dt.itemsize * elems
+        assert 2 * size <= SM_SMEM
+        lanes.check_fits("fd_grad", n, dt, host_libs["fd_grad_smem_elems"])
+
+
+def test_fd_grad_wrapper_refuses_a_block_over_the_shared_memory_limit(
+        host_libs):
+    """K1's wrapper refuses a block one value over the limit (a size
+    function that says so) and, through its own formula, n = 16 in f64."""
+    fake = lambda n: lanes.SMEM_LIMIT // 4 + 1
+    with pytest.raises(ValueError, match="K1 .*shared memory"):
+        lanes.check_fits("fd_grad", 6, torch.float32, fake)
+    lanes.check_fits("fd_grad", 6, torch.float32, lambda n: lanes.SMEM_LIMIT // 4)
+    n, smem = 16, host_libs["fd_grad_smem_elems"]
+    assert lanes.smem_bytes("fd_grad", n, torch.float64, smem) > lanes.SMEM_LIMIT
+    with pytest.raises(ValueError, match="K1 .*shared memory"):
+        lanes.check_fits("fd_grad", n, torch.float64, smem)
 
 
 @pytest.mark.parametrize("spec", K2_SPECS)

@@ -121,9 +121,10 @@ def library(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"tmr_{name}_{suffix}")
             fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
-        if name == "fd":   # K2's shared memory per block, in values
-            lib.tmr_fd_smem_elems.argtypes = [_I]
-            lib.tmr_fd_smem_elems.restype = ctypes.c_longlong
+        if name in ("fd", "fd_grad"):   # shared memory per block, in values
+            size = getattr(lib, f"tmr_{name}_smem_elems")
+            size.argtypes = [_I]
+            size.restype = ctypes.c_longlong
         _loaded[name] = lib
     return _loaded[name]
 

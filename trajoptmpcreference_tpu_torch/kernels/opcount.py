@@ -106,7 +106,7 @@ extern "C" long long count_pcg(const double* d, const double* up,
 _CALLS = {
     "fd": "tmr::fd::launch_fd<Num>(Q.data(), QD.data(), U.data(), C.data(), "
           "O.data(), n, L, nullptr)",
-    "fd_grad": "tmr::launch_fd_grad<Num>(Q.data(), QD.data(), U.data(), "
+    "fd_grad": "tmr::fd_grad::launch_fd_grad<Num>(Q.data(), QD.data(), U.data(), "
                "C.data(), O.data(), n, L, nullptr)",
     "task_vec": "tmr::launch_task_vec<Num>(Q.data(), QD.data(), C.data(), "
                 "O.data(), n, L, nullptr)",

@@ -17,21 +17,20 @@ Two layers live here:
   kernel flag is off, an explicit choice of the plain version.
 
 K1 — replaces trajoptmpcreference_tpu/ops/lanes.py ``_pallas_fd_grad``
-(kernels/csrc/fd_grad.cu).  One thread per lane runs joint transforms, RNEA,
-the analytic Minv, qdd, a second RNEA with qdd and the 4-pass dRNEA.  On the
-H100 it is bound by registers and local memory: the per-lane intermediates
-(dv, da, df by q and by qd, each (6, n) per link, plus Minv's F and IA
-blocks) are ~2,100 values at n = 6, far past 255 registers, so ptxas keeps
-its arrays in a per-thread local-memory stack frame (``ptxas -v`` output is
-kept by the build).  This first version accepts that; a
-thread-group-per-scenario layout (GRiD) is later work.
+(kernels/csrc/fd_grad.cu): K2's recursion, then a second RNEA with qdd, the
+dRNEA and -Minv D.  Its operations bound it.  It runs K2's thread group per
+lane (kernels/csrc/fd_group.cuh), then the gradient on the same group, one
+dRNEA derivative column per thread in registers.
 
 K2 — replaces ``_pallas_fd`` (kernels/csrc/fd.cu): RNEA + Minv + the qdd
 contraction per lane.  Its traffic is 3n values in and n out per lane; its
 operations bound it.  A group of threads shares each lane's recursion,
 several lanes per block: each Minv column lives in its own thread's
-registers, the rest of the state in shared memory; ``fd_smem_bytes`` is the
-block's size, from the kernel's own formula (``tmr_fd_smem_elems``).
+registers, the rest of the state in shared memory.
+
+Both keep a block's lanes in shared memory; ``smem_bytes`` is a block's
+size, from the kernel's own formula (``tmr_<name>_smem_elems``), and
+``check_fits`` refuses a block over the limit.
 """
 
 from __future__ import annotations
@@ -428,33 +427,38 @@ def launch(lib_name: str, n: int, packed, out, q, qd, u=None) -> None:
 
 # the opt-in shared memory of one thread block on Hopper (227 KB)
 SMEM_LIMIT = 232_448
+_KERNEL_ID = {"fd": "K2", "fd_grad": "K1"}
 
 
-def fd_smem_bytes(n: int, dtype: torch.dtype, smem_elems=None) -> int:
-    """Dynamic shared memory of one K2 block: fd.cu's own formula,
-    ``tmr_fd_smem_elems`` (values per block), from the built library
-    unless another build's entry is given."""
+def smem_bytes(lib_name: str, n: int, dtype: torch.dtype,
+               smem_elems=None) -> int:
+    """Dynamic shared memory of one block of kernel ``lib_name`` (fd or
+    fd_grad): the kernel's own formula, ``tmr_<lib_name>_smem_elems``
+    (values per block), from the built library unless another build's
+    entry is given."""
     if smem_elems is None:
         from trajoptmpcreference_tpu_torch.kernels import _build
-        smem_elems = _build.library("fd").tmr_fd_smem_elems
+        smem_elems = getattr(_build.library(lib_name),
+                             f"tmr_{lib_name}_smem_elems")
     return dtype.itemsize * int(smem_elems(n))
 
 
-def check_fd_fits(n: int, dtype: torch.dtype, smem_elems=None) -> None:
-    """Raise ValueError when a K2 block for n joints does not fit the
-    shared memory of one thread block."""
-    need = fd_smem_bytes(n, dtype, smem_elems)
+def check_fits(lib_name: str, n: int, dtype: torch.dtype,
+               smem_elems=None) -> None:
+    """Raise ValueError when a block of kernel ``lib_name`` for n joints
+    does not fit the shared memory of one thread block."""
+    need = smem_bytes(lib_name, n, dtype, smem_elems)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"K2 keeps a block's lanes' recursions in shared memory: n={n} "
-            f"in {dtype} needs {need} bytes, over the {SMEM_LIMIT}-byte "
+            f"{_KERNEL_ID[lib_name]} keeps a block's lanes in shared memory: "
+            f"n={n} in {dtype} needs {need} bytes, over the {SMEM_LIMIT}-byte "
             "limit of one thread block")
 
 
 def fd_kernel(packed: torch.Tensor, n: int, q, qd, u):
     """K2 on the card: (n, L) x3 -> qdd (n, L)."""
     L = check_lanes(n, packed, q, qd, u)
-    check_fd_fits(n, q.dtype)
+    check_fits("fd", n, q.dtype)
     out = torch.empty((n, L), dtype=q.dtype, device=q.device)
     if L:
         launch("fd", n, packed, out, q, qd, u)
@@ -468,6 +472,7 @@ fd_kernel.launches = 0
 def fd_grad_kernel(packed: torch.Tensor, n: int, q, qd, u):
     """K1 on the card: (n, L) x3 -> dqdd/d[q, qd, u] (n, 3n, L)."""
     L = check_lanes(n, packed, q, qd, u)
+    check_fits("fd_grad", n, q.dtype)
     out = torch.empty((n, 3 * n, L), dtype=q.dtype, device=q.device)
     if L:
         launch("fd_grad", n, packed, out, q, qd, u)
