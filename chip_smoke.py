@@ -25,8 +25,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
    the tensor cores), the H100 SXM data sheet's peaks at 700 W;
 5. in-situ: one KKT assembly and one full SQP solve of the flagship with
    the kernels on vs off, in f32 (max|dU| reported) and in f64 (equal exit
-   codes and iteration counts, max|dU|/max|U| under SOLVE_BAR, each side's
-   accepted line-search rungs compared); K4 and its plain version on the
+   codes and iteration counts, max|dU|/max|U| under a bar set by the gap
+   that one ulp makes, and a fault of 1e-8 planted in K1's output read
+   above that bar); K4 and its plain version on the
    flagship's cold-start Schur systems (relative residuals, iteration
    counts);
 6. the main path: the flagship closed loop (6-DoF arm, N = 64, B = 512
@@ -37,9 +38,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
    the loss between them, and the bench's quality gate;
 7. the PCG-SS closed loop (flagship.PCG_KNOBS, K4 on): the same episode
    with 4 SQP iterations per step and the Schur systems solved by PCG-SS,
-   with K1-K4's launch counts and the quality gate; its states are finite,
-   but for a scenario that ran away (|x| past RUNAWAY) before the f32
-   simulation overflowed.
+   with K1-K4's launch counts and the quality gate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -72,13 +71,14 @@ TOL_F64 = 1e-10
 K1_LANES_F64 = [L_RAGGED, L_MAIN]
 # the f64 kernels-on/off solve: max|dU|/max|U| under SOLVE_BAR, or under
 # SOLVE_FLOOR_X times the gap that a one-ulp change of the plain outputs
-# makes, whichever is larger: the cold Schur systems amplify rounding alone
-# to ~1e-6 (PERF.md section 6)
+# makes, whichever is larger: any change of the solve's rounding moves U by
+# ~1e-6 of max|U|, whatever its size (PERF.md section 6).  A fault planted
+# in K1's output, each value moved by FAULT_REL relative, must read above
+# the bar; one moved by TOL_F64 (what the f64 check of K1 lets through) is
+# reported.
 SOLVE_BAR = 1e-6
-SOLVE_FLOOR_X = 10
-# |x| past which a closed-loop scenario has run away (an arm spun up): the
-# PCG-SS loop may then overflow f32 (phase 7)
-RUNAWAY = 1e3
+SOLVE_FLOOR_X = 3
+FAULT_REL = 1e-8
 # K4 vs its plain version, f32: max|d|/max|ref| after 20 fixed iterations,
 # and each scenario's max|x - x_cr|/max|x_cr| after running to convergence
 PCG_TOL, PCG_BS, PCG_FIXED_ITERS = 1e-4, 12, 20
@@ -468,25 +468,28 @@ def check_pcg(torch, BT, FP, dev):
 
 def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
     """The flagship's cold solve (phase 5's) in f64 on the card with the
-    kernels on and off, and off once more with the plain versions' outputs
-    moved by one ulp (``one_ulp_plain``): the gap that rounding alone makes
-    after the solve's amplification, the floor of what on/off can show.
-    Asserts equal exit codes and outer iteration counts and max|dU|/max|U|
-    under SOLVE_BAR or SOLVE_FLOOR_X times that floor, whichever is larger;
-    records each line search's accepted rung and ratio on both sides, so
-    that a rung chosen otherwise on a near-tie shows beside the scenarios
-    it moved."""
+    kernels on and off; off once more with the plain versions' outputs
+    moved by one ulp, the gap that a change of rounding alone makes; and
+    on twice more with K1's output moved by TOL_F64 and by FAULT_REL,
+    planted faults.  Asserts equal exit codes and outer iteration counts
+    on vs off, max|dU|/max|U| under the bar (SOLVE_BAR or SOLVE_FLOOR_X
+    times the one-ulp gap, whichever is larger), and the FAULT_REL
+    fault's gap above it."""
     f64 = torch.float64
     x0s = torch.as_tensor(x0s_np, dtype=f64, device=dev)
     goals = torch.as_tensor(goals_np, dtype=f64, device=dev)
     X0 = x0s[..., None].expand(B, 12, N).contiguous()
     U0 = torch.zeros((B, 6, N - 1), dtype=f64, device=dev)
-    sols, rungs = {}, {}
-    for key, on in (("on", True), ("off", False), ("ulp", False)):
+    plain = ((lanes.LaneDynamics, "fd"), (lanes.LaneDynamics, "fd_grad"),
+             (K.LaneKinematics, "task_vec"))
+    runs = {"on": (True, (), 0.0), "off": (False, (), 0.0),
+            "ulp": (False, plain, 2.0 ** -52),
+            "parity": (True, plain[1:2], TOL_F64),
+            "fault": (True, plain[1:2], FAULT_REL)}
+    sols = {}
+    for key, (on, targets, rel) in runs.items():
         _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, use_kernels=on)
-        moved = one_ulp_plain(torch, lanes, K, dev) if key == "ulp" \
-            else contextlib.nullcontext()
-        with moved, record_line_search(type(solver)) as rungs[key]:
+        with moved_outputs(torch, dev, targets, rel):
             sols[key] = solver.solve(X0, U0, cost.default_params._replace(xg=goals))
     b = sols["off"]
     scale = b.U.abs().max()
@@ -494,86 +497,52 @@ def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
     def gap(key):
         dU = (sols[key].U - b.U).abs()
         per = dU.amax((1, 2)) / b.U.abs().amax((1, 2)).clamp_min(1e-300)
-        return float(dU.max() / scale), per
+        return (float(dU.max() / scale), float(per.max()),
+                float(per.median()))
 
-    rel, per = gap("on")
-    floor, per_floor = gap("ulp")
+    (rel, *per), (floor, *per_floor) = gap("on"), gap("ulp")
+    parity, fault = gap("parity"), gap("fault")
     bar = max(SOLVE_BAR, SOLVE_FLOOR_X * floor)
     a = sols["on"]
-    flips = [(k, int(sc)) for k, ((ia, _), (ib, _)) in
-             enumerate(zip(rungs["on"], rungs["off"]))
-             for sc in torch.nonzero(ia != ib).flatten().tolist()]
     log(f"[in-situ] solve kernels on vs off, f64: max|dU|/max|U| = {rel:.3e}, "
-        f"worst scenario {float(per.max()):.3e}, median "
-        f"{float(per.median()):.3e}; off vs off with the plain outputs moved "
-        f"one ulp: {floor:.3e}, worst {float(per_floor.max()):.3e}, median "
-        f"{float(per_floor.median()):.3e}; bar {bar:.3e} (max of "
-        f"{SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap)")
+        f"worst scenario {per[0]:.3e}, median {per[1]:.3e}; off vs off with "
+        f"the plain outputs moved one ulp: {floor:.3e}, worst "
+        f"{per_floor[0]:.3e}, median {per_floor[1]:.3e}; bar {bar:.3e} (max "
+        f"of {SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap)")
     log(f"[in-situ] f64 on vs off: exit codes equal "
         f"{torch.equal(a.exit_sqp, b.exit_sqp)}, outer iterations equal "
-        f"{torch.equal(a.outer_iters, b.outer_iters)}, SQP iterations equal "
-        f"{torch.equal(a.sqp_iters, b.sqp_iters)}; line searches "
-        f"{len(rungs['on'])} on, {len(rungs['off'])} off; accepted rungs "
-        f"differ in {len(flips)} (search, scenario) pairs on vs off, "
-        f"{sum(int((ia != ib).sum()) for (ia, _), (ib, _) in zip(rungs['ulp'], rungs['off']))} "
-        "off vs one ulp")
-    for k, sc in flips[:8]:
-        (ia, ra), (ib, rb) = rungs["on"][k], rungs["off"][k]
-        log(f"[in-situ]   search {k} scenario {sc}: rung {int(ia[sc])} "
-            f"(ratio {float(ra[sc]):.6e}) on, {int(ib[sc])} (ratio "
-            f"{float(rb[sc]):.6e}) off; the scenario's max|dU|/max|U| "
-            f"{float(per[sc]):.3e}")
+        f"{torch.equal(a.outer_iters, b.outer_iters)}; K1's output moved by "
+        f"{TOL_F64:.0e} relative vs off: {parity[0]:.3e}, worst "
+        f"{parity[1]:.3e}, median {parity[2]:.3e} (reported); by "
+        f"{FAULT_REL:.0e}: {fault[0]:.3e}, worst {fault[1]:.3e}, median "
+        f"{fault[2]:.3e} (must exceed the bar)")
     assert torch.equal(a.exit_sqp, b.exit_sqp)
     assert torch.equal(a.outer_iters, b.outer_iters)
     assert rel < bar, (rel, bar)
+    assert fault[0] > bar, (fault, bar)
 
 
 @contextlib.contextmanager
-def one_ulp_plain(torch, lanes, K, dev):
-    """While in the block, the plain versions of K1-K3 (their kernels'
-    flags off) return their outputs times 1 + s 2^-52, s = +-1 per element
-    from a fixed seed: the size of the rounding by which the kernels'
-    outputs differ from them."""
+def moved_outputs(torch, dev, targets, rel):
+    """While in the block, each ``(cls, method)`` of ``targets`` returns
+    its output times 1 + s rel, s = +-1 per element from a fixed seed."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    patched = ((lanes.LaneDynamics, "fd", "use_kernel_fd"),
-               (lanes.LaneDynamics, "fd_grad", "use_kernel_fd_grad"),
-               (K.LaneKinematics, "task_vec", "use_kernel_task"))
-    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in patched]
+    saved = [(cls, name, getattr(cls, name)) for cls, name in targets]
 
-    def moved(fn, flag):
+    def moved(fn):
         def call(self, *args):
             out = fn(self, *args)
-            if getattr(self, flag):
-                return out
             s = torch.randint(0, 2, out.shape, generator=gen, device=dev)
-            return out * (1 + (2 * s - 1).to(out.dtype) * 2.0 ** -52)
+            return out * (1 + (2 * s - 1).to(out.dtype) * rel)
         return call
 
-    for (cls, name, flag), (_, _, fn) in zip(patched, saved):
-        setattr(cls, name, moved(fn, flag))
+    for cls, name, fn in saved:
+        setattr(cls, name, moved(fn))
     try:
         yield
     finally:
         for cls, name, fn in saved:
             setattr(cls, name, fn)
-
-
-@contextlib.contextmanager
-def record_line_search(cls):
-    """While in the block, keep each ``cls.line_search`` call's accepted
-    rung and ratio per scenario in the list it yields."""
-    seen, search = [], cls.line_search
-
-    def recording(self, *args, **kwargs):
-        res = search(self, *args, **kwargs)
-        seen.append((res.ls_iter.clone(), res.ratio.clone()))
-        return res
-
-    cls.line_search = recording
-    try:
-        yield seen
-    finally:
-        cls.line_search = search
 
 
 def insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
@@ -641,30 +610,10 @@ def pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched):
                     time.perf_counter() - t0, {}, "[pcg]",
                     f"PCG-SS flagship through btridiag.pcg, {COLD_STEPS} cold")
     assert all(v > 0 for v in counts.values()), counts
-    assert finite or runaway_only(torch, res, "[pcg]")
+    assert finite
     assert res.X_applied.shape == (B, 12, STEPS + 1)
     assert gate_ok
     return counts
-
-
-def runaway_only(torch, res, tag):
-    """Print each scenario whose applied states go non-finite: the step,
-    and the largest |x| of its finite steps before it.  True when every
-    one of them ran away past RUNAWAY first: an arm spun up by the closed
-    loop until the f32 simulation overflows, which bench.py's gate counts
-    as unstable (the plain versions' loop does it too), not a kernel's NaN
-    in a sane state."""
-    X = res.X_applied                          # (B, nx, steps + 1)
-    fin = torch.isfinite(X).all(1)
-    ok = True
-    for b in torch.nonzero(~fin.all(1)).flatten().tolist():
-        first = int(torch.nonzero(~fin[b]).min())
-        peak = float(X[b, :, :first].abs().max()) if first else 0.0
-        log(f"{tag} scenario {b}: states non-finite from step {first}; "
-            f"largest |x| before {peak:.3e} (runaway above {RUNAWAY:.0e}); "
-            f"controls finite {bool(torch.isfinite(res.U_applied[b]).all())}")
-        ok = ok and peak > RUNAWAY
-    return ok
 
 
 def report_loop(torch, F, plant, x0s, goals, res, wall, counts, tag, label):
