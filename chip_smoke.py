@@ -35,10 +35,13 @@ Phases (each prints its own numbers; any failure exits non-zero):
    cyclic-reduction steps through run_scheduled, with the kernels' launch
    counts (split by lane count), each kernel's episode-weighted device
    time and bound (launches x time, launches x bound, at each lane count),
-   the loss between them, and the bench's quality gate;
+   the loss between them, and the bench's quality gate; every state and
+   control must be finite, and the scenarios held at the simulated arm's
+   joint velocity limit (flagship.SIM_QD_MAX) are counted;
 7. the PCG-SS closed loop (flagship.PCG_KNOBS, K4 on): the same episode
    with 4 SQP iterations per step and the Schur systems solved by PCG-SS,
-   with K1-K4's launch counts and the quality gate.
+   with K1-K4's launch counts, the same finite check and count, and the
+   quality gate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -47,6 +50,7 @@ the kernels as JSON.
 import collections
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -613,6 +617,18 @@ def pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched):
     assert finite
     assert res.X_applied.shape == (B, 12, STEPS + 1)
     assert gate_ok
+    # the simulated joint velocity limit changes exactly the scenarios that
+    # reach it: the same loop without the limit
+    _, off = F.run_episode(x0s, goals, steps=STEPS, cold_steps=COLD_STEPS,
+                           N=N, use_kernel_pcg=True, sim_qd_max=math.inf,
+                           **F.PCG_KNOBS)
+    changed = (off.X_applied != res.X_applied).any(2).any(1)
+    at_limit = (res.X_applied[:, 6:].abs() >= F.SIM_QD_MAX).any(2).any(1)
+    ids = lambda m: torch.nonzero(m).flatten().tolist()
+    log(f"[pcg] without the joint velocity limit: scenarios changed "
+        f"{ids(changed)}, at the limit {ids(at_limit)}, non-finite "
+        f"{ids(~torch.isfinite(off.X_applied).all(2).all(1))}")
+    assert torch.equal(changed, at_limit)
     return counts
 
 
@@ -623,13 +639,17 @@ def report_loop(torch, F, plant, x0s, goals, res, wall, counts, tag, label):
     gate_ok, med_err, stable = F.quality_gate(err, dist0)
     finite = bool(torch.isfinite(res.X_applied).all()
                   and torch.isfinite(res.U_applied).all())
+    n = plant.nq
+    at_limit = int((res.X_applied[:, n:].abs() >= F.SIM_QD_MAX).any(2).any(1)
+                   .sum())
     log(f"{tag} {label}: B={B} N={N} {STEPS} steps, f32: wall {wall:.3f} s, "
         f"{B * STEPS / wall:.1f} solves/s, {1e3 * wall / STEPS:.2f} ms/step; "
         f"launches {json.dumps(counts)}; iters/step mean "
         f"{res.iters.float().mean().item():.3f}")
     log(f"{tag} quality ({label}): median EE err {med_err:.4f} m from "
         f"{float(np.median(dist0)):.2f} m, {stable}/{B} stable<1m, "
-        f"states finite {finite}, gate {'passed' if gate_ok else 'FAILED'}")
+        f"states finite {finite}, {at_limit} at the simulated joint "
+        f"velocity limit, gate {'passed' if gate_ok else 'FAILED'}")
     return gate_ok, finite
 
 

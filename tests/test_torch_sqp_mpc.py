@@ -15,6 +15,7 @@ package, plus batch invariance and the no-JAX rule.
   same line-search decisions, which the equal iteration counts check).
 """
 
+import math
 import pathlib
 
 import jax
@@ -163,6 +164,30 @@ def test_watchdog_coasts_and_cold_resets():
     last = res.X_applied[..., -2:-1].expand(-1, -1, N)
     assert torch.equal(res.X_plan_last, last)
     assert not res.U_plan_last.any() and not res.lam_last.any()
+
+
+def test_sim_velocity_limit_clamps_applied_states():
+    """A joint velocity limit below the arm's speed clamps each simulated
+    state's velocities and leaves its positions and the controls as the
+    plain step gives them; the flagship sets pi / dt."""
+    _, cost, solver = F.flagship(N=N, dtype=f64, device="cpu")
+    lim = 1e-2
+    ctrl = MPCController(solver=solver, sim_plant=solver.plant, sim_qd_max=lim)
+    x0s, goals = F.bench_scenarios(2)
+    res = ctrl.run(torch.tensor(x0s), 3,
+                   cost_params=cost.default_params._replace(xg=torch.tensor(goals)))
+    X, U = res.X_applied, res.U_applied
+    assert bool((X[:, 6:, 1:].abs() == lim).any())
+    for k in range(3):
+        x = solver.plant.step(X[..., k], U[..., k], solver.dt)
+        torch.testing.assert_close(X[:, :6, k + 1], x[:, :6], atol=1e-12, rtol=0)
+        torch.testing.assert_close(X[:, 6:, k + 1], x[:, 6:].clamp(-lim, lim),
+                                   atol=1e-12, rtol=0)
+    nan = ctrl.run(torch.full((1, 12), float("nan"), dtype=f64), 1,
+                   cost_params=cost.default_params._replace(xg=torch.tensor(goals[:1])))
+    assert bool(nan.X_applied[..., -1].isnan().all())
+    _, _, flag = F.flagship_mpc(N=N, dtype=f64, device="cpu")
+    assert flag.sim_qd_max == F.SIM_QD_MAX == math.pi / solver.dt
 
 
 def test_port_never_imports_jax():

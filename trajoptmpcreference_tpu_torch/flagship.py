@@ -14,6 +14,8 @@ iterations at a relative tolerance of 1e-4.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -31,6 +33,9 @@ COLD_KNOBS = dict(max_iter=4, alpha_min=0.005, alpha_factor=0.5,
 # the PCG flagship (__graft_entry__.py:34-39: "method="PCG-SS",
 # pcg_iters=40, max_iter=4 reproduces the round-2 PCG flagship")
 PCG_KNOBS = dict(method="PCG-SS", max_iter=4, pcg_iters=40)
+DT = 0.015
+# the simulated arm's joint velocity limit: half a turn per control step
+SIM_QD_MAX = math.pi / DT
 
 
 def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
@@ -69,15 +74,24 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
         rho_init=1e-3,
         rho_min=1e-3,
     )
-    solver = make_sqp(plant, cost, None, N, 0.015, method=method, options=opts,
+    solver = make_sqp(plant, cost, None, N, DT, method=method, options=opts,
                       exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return plant, cost, solver
 
 
-def flagship_mpc(**knobs):
-    """(plant, cost, MPCController) around ``flagship(**knobs)``."""
+def flagship_mpc(sim_qd_max=SIM_QD_MAX, **knobs):
+    """(plant, cost, MPCController) around ``flagship(**knobs)``.
+
+    The simulated arm's joints are limited to ``sim_qd_max``, by default
+    pi / dt rad/s, half a turn per control step (the port's own; the
+    reference has none: ``math.inf``).  Past it semi-implicit Euler no
+    longer follows the arm: its explicit velocity-product terms make the
+    speed grow by orders of magnitude per step until f32 overflows, under
+    torques of ~2 N m.  No scenario that stays under the limit changes
+    (PERF.md section 6)."""
     plant, cost, solver = flagship(**knobs)
-    return plant, cost, MPCController(solver=solver, sim_plant=plant)
+    return plant, cost, MPCController(solver=solver, sim_plant=plant,
+                                      sim_qd_max=sim_qd_max)
 
 
 def bench_scenarios(B: int, seed: int = 0):
@@ -94,7 +108,7 @@ def bench_scenarios(B: int, seed: int = 0):
 def run_episode(x0s, goals, steps=150, cold_steps=1, **knobs):
     """The bench's scheduled closed loop: ``cold_steps`` steps of the cold
     controller, then the steady flagship controller.  x0s (B, 12) and goals
-    (B, 6) are tensors on the target device; knobs go to ``flagship``."""
+    (B, 6) are tensors on the target device; knobs go to ``flagship_mpc``."""
     knobs = dict(knobs, dtype=x0s.dtype, device=x0s.device)
     plant, cost, ctrl = flagship_mpc(**knobs)
     _, _, ctrl_cold = flagship_mpc(**{**knobs, **COLD_KNOBS})

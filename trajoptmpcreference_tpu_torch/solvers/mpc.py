@@ -67,6 +67,10 @@ class MPCController:
     # beyond this bound applies zero control for the step and cold-resets
     # the warm-start carry.  inf = off (reference parity).
     watchdog_u_max: float = float("inf")
+    # joint velocity limit of the simulated plant (the port's own; inf =
+    # off, as the reference): each simulated state's joint velocities are
+    # clamped to +-sim_qd_max.  NaN passes through.
+    sim_qd_max: float = float("inf")
 
     @property
     def plant(self) -> Plant:
@@ -117,6 +121,10 @@ class MPCController:
                 Up = _where(bad, torch.zeros_like(Up), Up)
                 lam = _where(bad, torch.zeros_like(lam), lam)
             x = self.sim_plant.step(x, u0, dt)
+            if math.isfinite(self.sim_qd_max):
+                nq = self.sim_plant.nq
+                x = torch.cat([x[..., :nq], x[..., nq:].clamp(
+                    -self.sim_qd_max, self.sim_qd_max)], dim=-1)
             xs_.append(x)
             us_.append(u0)
             Js.append(res.J)
