@@ -6,7 +6,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
 
 1. toolchain: torch / CUDA / nvcc versions, card name and power limit;
 2. build: nvcc compiles kernels K1-K4 (csrc/*.cu) for sm_90a, in parallel,
-   and g++ the operation counters (kernels/opcount.py): K1-K3's functions
+   and g++ the operation counters (kernels/opcount.py): K1-K4's functions
    as they need to be computed (kernels/needed_ops.cpp, each value once),
    whose counts give their bounds, and the kernels' own sources;
 3. each of K1-K3 against its plain PyTorch version on the card, f32, at
@@ -15,14 +15,19 @@ Phases (each prints its own numbers; any failure exits non-zero):
    of its 16, and in f64 at 1,000 and 32,256); K4 (the fused PCG)
    against its plain version for J, BJ and SS on SPD and negative-definite
    systems at B = 512, N = 64, bs = 12 (20 fixed iterations, and run to
-   convergence against cyclic reduction), on ragged batches, in f64, and
-   its shared-memory limit;
+   convergence against cyclic reduction), on ragged batches, in f64, at
+   each block size its register variant is built for (bs = 2-14, each at
+   the most rows that variant takes), at block sizes its shared-operator
+   variant reads at run time, at the first design's largest shapes (N =
+   156 in f32, 78 in f64, bs = 12; these at 12 fixed iterations), and its
+   shared-memory limit;
 4. each kernel's time beside its plain version's and its bound, median of
    20, with two timers (kernels/timing.py): CUDA events around one call
    (``ms``, the yardstick of earlier runs) and device time behind a spin
-   (``device_ms``); K2 at each of its lane counts.  The bound is the
-   larger of bytes / 3.35 TB/s and needed operations / 67 TFLOP/s (f32 off
-   the tensor cores), the H100 SXM data sheet's peaks at 700 W;
+   (``device_ms``); K2 at each of its lane counts, K4 at B = 512 and 1.
+   The bound is the larger of bytes / 3.35 TB/s and needed operations / 67
+   TFLOP/s (f32 off the tensor cores), the H100 SXM data sheet's peaks at
+   700 W (K4's operations for the iterations the timed run took);
 5. in-situ: one KKT assembly and one full SQP solve of the flagship with
    the kernels on vs off, in f32 (max|dU| reported) and in f64 (equal exit
    codes and iteration counts, max|dU|/max|U| under a bar set by the gap
@@ -86,6 +91,11 @@ FAULT_REL = 1e-8
 # K4 vs its plain version, f32: max|d|/max|ref| after 20 fixed iterations,
 # and each scenario's max|x - x_cr|/max|x_cr| after running to convergence
 PCG_TOL, PCG_BS, PCG_FIXED_ITERS = 1e-4, 12, 20
+# K4 at other shapes: fewer fixed iterations.  At tol = 0 a run stops early
+# only where nu is exactly zero; with SS at bs = 2-5 nu underflows to zero
+# in f32 from iteration 16, in K4 and its plain version alike, at
+# iterations that rounding sets, so equal counts there would test rounding
+PCG_SHAPE_ITERS = 12
 # the convergence run's relative exit on nu = r' Pinv r: 1e-8 would bound
 # the residual only to ~1e-4 (nu ~ |r|^2), so the error could reach the bar
 PCG_CONV_TOL, PCG_CONV_ITERS = 1e-12, 200
@@ -161,11 +171,15 @@ def main():
     log("[ptxas] fd_grad (f64, n=6): "
         + ptxas_summary(_build.ptxas_report("fd_grad"), "IdLi6E"))
     for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
-        key = "pcg_kernelI" + ("f" if tag == "f32" else "d") + "E"
-        log(f"[ptxas] pcg ({tag}): "
-            + ptxas_summary(_build.ptxas_report("pcg"), key)
+        t = "f" if tag == "f32" else "d"
+        log(f"[ptxas] pcg registers variant ({tag}, bs={PCG_BS}): "
+            + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_regsI{t}Li12E")
             + f"; dynamic shared memory {FP.smem_bytes(N, PCG_BS, dt)} bytes "
             f"per block at N={N}, bs={PCG_BS}")
+        log(f"[ptxas] pcg shared-operator variant ({tag}): "
+            + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_sharedI{t}E")
+            + f"; dynamic shared memory {FP.smem_bytes(156, PCG_BS, dt)} "
+            f"bytes per block at N=156, bs={PCG_BS}")
 
     # ---- 3. kernels vs plain versions (f32, on the card)
     plant = URDFPlant(robot=serial_arm(6))
@@ -258,25 +272,23 @@ def main():
         log(f"[time] fd L={L}: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
             f"device; bound {bnd:.4f} ms ({by}), {100 * bnd / t_dev:.1f}% of "
             "bound in device time (medians of 20)")
-    S, b = random_systems(torch, BT, B, N, PCG_BS, 91, 1.0, f32, dev)
-    ops = FP.pack_operands(S, b, "SS")
     kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
-    plain_ms["pcg"] = events_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
-    ms["pcg"] = events_ms(lambda: FP.pcg_fused_kernel(*ops, **kw))
-    dev_ms["pcg"] = device_ms(lambda: FP.pcg_fused_kernel(*ops, **kw))
-    # at tol = 0 every scenario runs the 40 iterations: one scenario's count
-    # is every scenario's
-    pcg_ops = B * opcount.count_pcg(*(t[:1] for t in ops), ss=True,
-                                    relative=False, max_iter=40, tol=0.0)
-    pcg_bytes = 4 * (sum(t.numel() for t in ops) + ops[3].numel()) + 4 * B
-    by_ops, by_bytes = pcg_ops / PEAK_FLOPS, pcg_bytes / PEAK_BYTES
-    bounds["pcg"] = (1e3 * max(by_ops, by_bytes),
-                     "operations" if by_ops >= by_bytes else "bytes")
-    log(f"[time] pcg B={B} N={N} bs={PCG_BS} SS 40 iterations: kernel "
-        f"{ms['pcg']:.4f} ms events, {dev_ms['pcg']:.4f} ms device; plain "
-        f"{plain_ms['pcg']:.4f} ms events; bound {bounds['pcg'][0]:.4f} ms "
-        f"({bounds['pcg'][1]}; {pcg_ops} operations, {pcg_bytes} bytes) "
-        "(medians of 20)")
+    for Bn in (B, 1):
+        S, b = random_systems(torch, BT, Bn, N, PCG_BS, 91, 1.0, f32, dev)
+        ops = FP.pack_operands(S, b, "SS")
+        call = lambda: FP.pcg_fused_kernel(*ops, **kw)
+        t_plain = events_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
+        t_ev, t_dev = events_ms(call), device_ms(call)
+        bnd, by, need, did, hist = pcg_bound(torch, opcount, FP, ops, kw)
+        log(f"[time] pcg B={Bn} N={N} bs={PCG_BS} SS 40 iterations: kernel "
+            f"{t_ev:.4f} ms events, {t_dev:.4f} ms device; plain "
+            f"{t_plain:.4f} ms events; bound {bnd:.4f} ms ({by}; the function "
+            f"needs {need} operations (kernels/needed_ops.cpp), the kernel "
+            f"does {did}; iterations {json.dumps(hist)}), "
+            f"{100 * bnd / t_dev:.1f}% of bound in device time (medians of 20)")
+        if Bn == B:
+            plain_ms["pcg"], ms["pcg"], dev_ms["pcg"] = t_plain, t_ev, t_dev
+            bounds["pcg"] = (bnd, by)
 
     # ---- 5. in-situ: the flagship's KKT blocks and one solve, kernels on/off
     x0s_np, goals_np = F.bench_scenarios(B)
@@ -397,15 +409,41 @@ def episode_weighted(kernels, inputs, by_lanes, lane_bound, device_ms, tag):
             f"{bound:.2f} ms, loss {total - bound:.2f} ms")
 
 
+def pcg_bound(torch, opcount, FP, ops, kw):
+    """K4's bound on these operands: the larger of bytes / 3.35 TB/s and
+    the operations its function needs (needed_ops.cpp) for the iterations
+    each scenario took in the kernel's run, over 67 TFLOP/s.  A scenario's
+    operations depend on its iteration count alone, so one scenario,
+    counted at each count the run took, gives the batch's.  Returns (bound
+    ms, what binds, needed operations, operations the kernel does, the
+    iteration histogram)."""
+    _, iters = FP.pcg_fused_kernel(*ops, **kw)
+    hist = collections.Counter(iters.tolist())
+    one = [t[:1] for t in ops]
+    count = lambda fn, k: fn(*one, ss=kw["precond"] == "SS",
+                             relative=kw["relative"], max_iter=k, tol=0.0)
+    need = sum(c * count(opcount.count_needed_pcg, k) for k, c in hist.items())
+    did = sum(c * count(opcount.count_pcg, k) for k, c in hist.items())
+    item = ops[3].element_size()
+    nbytes = (item * (sum(t.numel() for t in ops) + ops[3].numel())
+              + 4 * len(iters))
+    by_ops, by_bytes = need / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(by_ops, by_bytes),
+            "operations" if by_ops >= by_bytes else "bytes", need, did,
+            dict(sorted(hist.items())))
+
+
 def random_systems(torch, BT, B, N, bs, seed, sign, dtype, dev):
     """B random block-tridiagonal systems, SPD (sign 1) or negative
     definite (sign -1), moderately conditioned (Jacobi-preconditioned CG
-    needs ~30 iterations), and right-hand sides; drawn in f64 on the host."""
+    needs ~30 iterations), and right-hand sides; drawn in f64 on the host.
+    The off-diagonal blocks' scale is that of bs = 12 at smaller bs, whose
+    random blocks would otherwise make S indefinite."""
     g = torch.Generator().manual_seed(seed)
     rn = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64)
     M = rn(B, N, bs, bs) / bs ** 0.5
     diag = M @ M.transpose(-1, -2) + torch.eye(bs, dtype=torch.float64)
-    upper = 0.4 * rn(B, N - 1, bs, bs) / bs ** 0.5
+    upper = 0.4 * rn(B, N - 1, bs, bs) / max(bs, 12) ** 0.5
     on = lambda t: t.to(dtype=dtype, device=dev)
     return BT.BlockTridiag(on(sign * diag), on(sign * upper)), on(rn(B, N, bs))
 
@@ -413,6 +451,7 @@ def random_systems(torch, BT, B, N, bs, seed, sign, dtype, dev):
 def check_pcg(torch, BT, FP, dev):
     """K4 against pcg_fused_plain on the card; returns max|d| of the
     B = 512 SS SPD fixed-iteration check."""
+    from trajoptmpcreference_tpu_torch.kernels import _build
     f32, f64 = torch.float32, torch.float64
     fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
     conv = dict(tol=PCG_CONV_TOL, max_iter=PCG_CONV_ITERS, relative=True)
@@ -450,14 +489,42 @@ def check_pcg(torch, BT, FP, dev):
             log(f"[check] pcg {pre} ragged B={Bn} N={Nn}: max|d|/max|ref| = "
                 f"{rel:.3e} (limit {PCG_TOL:.0e})")
             assert rel < PCG_TOL, (pre, Bn, Nn, rel)
-    # f64 (184 KB of shared memory per block) and the size limit
+    # each block size the register variant is built for, at the most rows
+    # it takes; block sizes the shared-operator variant reads at run time;
+    # the first design's largest shapes (the shared-operator variant at a
+    # built block size)
+    uses_regs = _build.library("pcg").tmr_pcg_uses_registers
+    regs = lambda Nn, bs: "registers" if uses_regs(Nn, bs) else "shared operator"
+    largest = lambda bs: max(Nn for Nn in range(1, 1025) if uses_regs(Nn, bs))
+    cases = ([(bs, largest(bs), f32) for bs in range(2, 15, 2)]
+             + [(5, N, f32), (3, 2 * N, f32), (PCG_BS, 156, f32),
+                (PCG_BS, 78, f64)])
+    shape_fixed = dict(fixed, max_iter=PCG_SHAPE_ITERS)
+    for bs, Nn, dt in cases:
+        S, b = random_systems(torch, BT, B, Nn, bs, 10 + bs, -1.0, dt, dev)
+        limit = PCG_TOL if dt == f32 else 1e-10
+        for pre in ("BJ", "SS"):
+            ops = FP.pack_operands(S, b, pre)
+            out, it = FP.pcg_fused_kernel(*ops, precond=pre, **shape_fixed)
+            ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **shape_fixed)
+            torch.cuda.synchronize()
+            rel = rel_err(out, ref)
+            log(f"[check] pcg {pre} negdef {str(dt)[6:]} B={B} N={Nn} bs={bs} "
+                f"({regs(Nn, bs)}, {FP.smem_bytes(Nn, bs, dt)} bytes of "
+                f"shared memory), {PCG_SHAPE_ITERS} iterations: "
+                f"max|d|/max|ref| = {rel:.3e} (limit {limit:.0e}), iteration "
+                f"counts equal {torch.equal(it, it_ref)}")
+            assert torch.equal(it, it_ref), (pre, bs, Nn, dt)
+            assert rel < limit, (pre, bs, Nn, dt, rel)
+    # f64 at the flagship's shape (the register variant) and a shape over
+    # the size limit
     S, b = random_systems(torch, BT, B, N, PCG_BS, 8, -1.0, f64, dev)
     ops = FP.pack_operands(S, b, "SS")
     out, _ = FP.pcg_fused_kernel(*ops, precond="SS", **fixed)
     ref, _ = FP.pcg_fused_plain(*ops, precond="SS", **fixed)
     rel = rel_err(out, ref)
-    log(f"[check] pcg SS negdef f64 B={B} N={N}: max|d|/max|ref| = "
-        f"{rel:.3e} (limit 1e-10)")
+    log(f"[check] pcg SS negdef f64 B={B} N={N} ({regs(N, PCG_BS)}): "
+        f"max|d|/max|ref| = {rel:.3e} (limit 1e-10)")
     assert rel < 1e-10, rel
     S, b = random_systems(torch, BT, 2, 4 * N, PCG_BS, 9, 1.0, f64, dev)
     try:

@@ -12,10 +12,16 @@ reductions in another order).  K1 and K2 run as a thread group per lane:
 their host builds run each phase for the group's G threads in turn, once
 in order and once in reverse (a phase in which one thread read what
 another wrote would give another answer), over whole blocks of lanes with
-a ragged tail.  Their shared-memory sizes come from their own formulas,
-which the wrapper reads from the libraries.  The functions behind chip_smoke.py's
-bounds (kernels/needed_ops.cpp: K1-K3 once more, each value computed
-once) are held to the plain versions too, and the operation counts
+a ragged tail.  K4 spreads the rows of S over a block's threads: its host
+build runs each phase for the block's threads in turn, in order and in
+reverse, for each block size it is built for, for the shared-operator
+variant (any other block size, or more rows than the register variant
+takes), for N = 1 and ragged N.  The shared-memory sizes come from the
+kernels' own formulas,
+which the wrappers read from the libraries; K4's accepts every shape the
+first design's did.  The functions behind chip_smoke.py's bounds
+(kernels/needed_ops.cpp: K1-K4 once more, each value computed once) are
+held to the plain versions too, and the operation counts
 (kernels/opcount.py) to the loops' structure.  It does not check that the
 kernels build with nvcc or launch: chip_smoke.py does that on the card."""
 
@@ -68,7 +74,7 @@ def host_libs(tmp_path_factory):
     # K2 and K1 a second time, their groups' threads run in reverse order;
     # and the functions as counted for the bounds
     builds = [(name, _build.CSRC / f"{name}.cu", []) for name in _build.LIBRARIES]
-    for name in ("fd", "fd_grad"):
+    for name in ("fd", "fd_grad", "pcg"):
         builds.append((f"{name}_reversed", _build.CSRC / f"{name}.cu",
                        ["-DTMR_GROUP_REVERSE_TIDS"]))
     builds.append(("needed", opcount.NEEDED, []))
@@ -88,6 +94,9 @@ def host_libs(tmp_path_factory):
                 fn.argtypes = _build.ARGTYPES[name]
                 fn.restype = ctypes.c_int
                 libs[f"needed_{name}"] = fn
+            lib.need_pcg_f64.argtypes = _build.ARGTYPES["pcg"]
+            lib.need_pcg_f64.restype = ctypes.c_int
+            libs["needed_pcg"] = lib.need_pcg_f64
             continue
         name = key.replace("_reversed", "")
         fn = getattr(lib, f"tmr_{name}_f64")
@@ -99,10 +108,13 @@ def host_libs(tmp_path_factory):
             size.argtypes = [ctypes.c_int]
             size.restype = ctypes.c_longlong
             libs[f"{key}_smem_elems"] = size
-        if name == "pcg":
+        if key == "pcg":
             libs["pcg_smem_elems"] = lib.tmr_pcg_smem_elems
             lib.tmr_pcg_smem_elems.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.tmr_pcg_smem_elems.restype = ctypes.c_longlong
+            libs["pcg_uses_registers"] = lib.tmr_pcg_uses_registers
+            lib.tmr_pcg_uses_registers.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.tmr_pcg_uses_registers.restype = ctypes.c_int
     return libs
 
 
@@ -276,14 +288,15 @@ def test_operation_counts_follow_the_code():
     assert c0 > 0 and c20 - c10 == c10 - c0 > 0
 
 
-def _pcg_problem(B, N, bs, seed, precond):
+def _pcg_problem(B, N, bs, seed, precond, shift=4.0):
     """Packed K4 operands for B random systems (scenario 1 negative
     definite, scenario 0's r0 exactly zero: converged before the first
-    iteration) with right-hand sides of scales 1e-2..1e2."""
+    iteration) with right-hand sides of scales 1e-2..1e2; the diagonal
+    blocks are M M' + shift bs I (a smaller shift: more iterations)."""
     rng = np.random.default_rng(seed)
     M = rng.standard_normal((B, N, bs, bs))
     sign = np.where(np.arange(B) == 1, -1.0, 1.0)[:, None, None, None]
-    diag = sign * (M @ np.swapaxes(M, -1, -2) + 4.0 * bs * np.eye(bs))
+    diag = sign * (M @ np.swapaxes(M, -1, -2) + shift * bs * np.eye(bs))
     upper = sign * 0.3 * rng.standard_normal((B, N - 1, bs, bs))
     r0 = rng.standard_normal((B, N, bs)) * np.logspace(-2, 2, B)[:, None, None]
     r0[0] = 0.0
@@ -313,9 +326,132 @@ def test_host_compiled_pcg_matches_plain(precond, relative, N, host_libs):
                                    atol=1e-10 * float(ref[k].abs().max()))
 
 
+def _run_pcg(fn, ops, precond, relative, max_iter, tol):
+    B, N, bs = ops[3].shape
+    dx = torch.full_like(ops[3], float("nan"))
+    iters = torch.full((B,), -1, dtype=torch.int32)
+    rc = fn(*(t.data_ptr() for t in ops), dx.data_ptr(), iters.data_ptr(), B,
+            N, bs, int(precond == "SS"), int(relative), max_iter, tol, None)
+    assert rc == 0
+    return dx, iters
+
+
+# (bs, N): each block size the register variant is built for (N = 1, odd
+# and ragged N), the shared-operator variant at block sizes read at run
+# time and at built ones over the register variant's rows (bs = 12 past
+# 768 rows, bs = 2 past 1,024)
+PCG_SHAPES = [(2, 1), (2, 37), (4, 5), (6, 11), (8, 3), (10, 13), (12, 1),
+              (12, 63), (14, 9), (1, 6), (3, 17), (5, 1), (12, 70), (2, 515)]
+
+
+@pytest.mark.parametrize("order", ["pcg", "pcg_reversed"])
+@pytest.mark.parametrize("precond", ["J", "BJ", "SS"])
+@pytest.mark.parametrize("bs,N", PCG_SHAPES)
+def test_host_compiled_pcg_variants_match_plain(bs, N, precond, order,
+                                                host_libs):
+    """K4's phases, thread by thread in order and in reverse, for each
+    variant and block size, against pcg_fused_plain in f64: equal iteration
+    counts, 1e-9 of each scenario's scale (the same loop, sums in another
+    order; up to 80 iterations on up to 1,030 rows, where J's conditioning
+    carries the rounding to ~1e-9, most cases agree to ~1e-15); the
+    absolute exit for J and SS, the relative one for BJ."""
+    B, max_iter, relative = 4, 80, precond == "BJ"
+    tol = 1e-14 if relative else 1e-10
+    ops = _pcg_problem(B, N, bs, seed=10 * bs + N, precond=precond, shift=0.5)
+    dx, iters = _run_pcg(host_libs[order], ops, precond, relative, max_iter,
+                         tol)
+    ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
+                                        max_iter=max_iter, relative=relative)
+    assert iters.tolist() == ref_iters.tolist()
+    assert iters[0] == 0 and torch.equal(dx[0], torch.zeros_like(dx[0]))
+    for k in range(1, B):
+        np.testing.assert_allclose(dx[k].numpy(), ref[k].numpy(), rtol=0,
+                                   atol=1e-9 * float(ref[k].abs().max()))
+    regs = bs % 2 == 0 and bs <= 14 and N * bs <= (1024 if bs <= 8 else 768)
+    assert host_libs["pcg_uses_registers"](N, bs) == int(regs)
+
+
+@pytest.mark.parametrize("N", [1, 7, 64])
+@pytest.mark.parametrize("relative", [False, True])
+@pytest.mark.parametrize("precond", ["J", "BJ", "SS"])
+def test_needed_pcg_computes_the_function(precond, relative, N, host_libs):
+    """K4's function as needed_ops.cpp writes it (whose operations give
+    K4's bound) against pcg_fused_plain in f64."""
+    B, bs, max_iter = 4, 12, 60
+    tol = 1e-14 if relative else 1e-10
+    ops = _pcg_problem(B, N, bs, seed=N + 5, precond=precond, shift=0.5)
+    dx, iters = _run_pcg(host_libs["needed_pcg"], ops, precond, relative,
+                         max_iter, tol)
+    ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
+                                        max_iter=max_iter, relative=relative)
+    assert iters.tolist() == ref_iters.tolist()
+    for k in range(B):
+        np.testing.assert_allclose(dx[k].numpy(), ref[k].numpy(), rtol=0,
+                                   atol=1e-10 * float(ref[k].abs().max()))
+
+
+@pytest.mark.parametrize("ss", [False, True])
+def test_needed_pcg_count_follows_the_loop(ss):
+    """K4's needed count grows by one iteration's operations per iteration
+    of the budget: each block product over full rows (2 bs - 1 operations
+    a row), the first and last block rows without the block they lack, and
+    the vector updates; the kernel does more (sums from zero rows at the
+    ends, p = s + 0 p at the first iteration)."""
+    B, N, bs = 2, 8, 12
+    n, row = N * bs, 2 * bs - 1
+    ops = _pcg_problem(B, N, bs, seed=3, precond="SS" if ss else "BJ")
+    kw = dict(ss=ss, relative=False, tol=0.0)
+    c0, c10, c20 = (opcount.count_needed_pcg(*ops, max_iter=k, **kw)
+                    for k in (0, 10, 20))
+    matvec = row * (n + 2 * (n - bs)) + 2 * (n - bs)
+    precond = row * n
+    if ss:   # t = U s_{k+1} + U' s_{k-1}, P t, s - P t
+        precond += row * 2 * (n - bs) + (n - 2 * bs) + row * n + n
+    per_iter = matvec + precond + 2 * (2 * n - 1) + 3 * 2 * n + 2
+    # scenario 0 is converged before the first iteration: B - 1 count; the
+    # first iteration's x = alpha p takes n operations, not 2 n
+    assert c20 - c10 == 10 * (B - 1) * per_iter
+    assert c10 - c0 == (10 * per_iter - n) * (B - 1)
+    assert c0 > 0
+    done = opcount.count_pcg(*ops, max_iter=20, **kw)
+    assert c20 < done
+
+
 def test_host_compiled_pcg_shared_memory_size(host_libs):
-    """The kernel's shared-memory carve equals the wrapper's estimate."""
-    for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5)):
-        elems = host_libs["pcg_smem_elems"](N, bs)
-        assert FP.smem_bytes(N, bs, torch.float64) == 8 * elems
-        assert FP.smem_bytes(N, bs, torch.float32) == 4 * elems
+    """The wrapper's size is the kernel's own formula (pcg.cu
+    tmr_pcg_smem_elems, read through the library), for the register
+    variant and the shared operator; the flagship fits in a tenth of the
+    first design's 95,364 bytes, and a shape over the limit raises."""
+    smem = host_libs["pcg_smem_elems"]
+    for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5), (157, 12)):
+        elems = smem(N, bs)
+        assert FP.smem_bytes(N, bs, torch.float64, smem) == 8 * elems
+        assert FP.smem_bytes(N, bs, torch.float32, smem) == 4 * elems
+    assert FP.smem_bytes(64, 12, torch.float32, smem) < 9_537
+    FP.check_fits(64, 12, torch.float64, smem)
+    with pytest.raises(ValueError, match=f"{FP.SMEM_LIMIT}-byte limit"):
+        FP.check_fits(4 * 64, 12, torch.float64, smem)
+
+
+def _first_design_elems(N, bs):
+    """The first design's shared memory per block, in values (the system
+    and six vectors in shared memory): what it accepted."""
+    tri = bs * (bs + 1) // 2
+    return 2 * N * tri + N * bs * bs + 6 * N * bs + 33
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [1, 2, 3, 5, 8, 12, 14, 20, 48, 170])
+def test_pcg_accepts_every_shape_the_first_design_took(bs, dtype, host_libs):
+    """At each block size the largest N the first design fitted in one
+    block's shared memory (and every smaller N, the sizes growing with N)
+    fits K4's block."""
+    smem, limit = host_libs["pcg_smem_elems"], FP.SMEM_LIMIT // dtype.itemsize
+    n_max = 0
+    while _first_design_elems(n_max + 1, bs) <= limit:
+        n_max += 1
+    if n_max == 0:
+        return
+    for N in sorted({1, n_max // 2, n_max}):
+        FP.check_fits(N, bs, dtype, smem)
+        assert smem(N, bs) <= _first_design_elems(N, bs) or N * bs <= 768

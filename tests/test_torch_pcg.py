@@ -12,6 +12,9 @@ interpret mode in f32 (the TPU kernel's own CPU route; f32 rounding of two
 LU libraries in the block-Jacobi inverse).
 """
 
+import ctypes
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 
 from trajoptmpcreference_tpu.ops import btridiag as jbtd
 from trajoptmpcreference_tpu.ops.pallas_pcg import make_batched_pcg as jax_batched_pcg
+from trajoptmpcreference_tpu_torch.kernels import _build
 from trajoptmpcreference_tpu_torch.ops import btridiag as tbtd
 from trajoptmpcreference_tpu_torch.ops import fused_pcg as FP
 
@@ -232,16 +236,31 @@ def test_fused_warm_start_converged_takes_no_step():
         assert iters.tolist() == [0, 0]
 
 
-def test_fused_shared_memory_limit_raises():
+@pytest.fixture(scope="module")
+def pcg_smem_elems(tmp_path_factory):
+    """K4's size formula (pcg.cu ``tmr_pcg_smem_elems``) from a g++ build
+    of the kernel's source: the wrapper reads it from the library."""
+    so = tmp_path_factory.mktemp("pcg_host") / "libpcg.so"
+    subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
+                    "-fPIC", "-o", str(so), str(_build.CSRC / "pcg.cu")],
+                   check=True)
+    fn = ctypes.CDLL(str(so)).tmr_pcg_smem_elems
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def test_fused_shared_memory_limit_raises(pcg_smem_elems):
     """A system too large for one thread block's shared memory raises a
-    ValueError naming the limit (never a fallback); the flagship fits."""
-    FP.check_fits(64, 12, torch.float32)
-    FP.check_fits(64, 12, torch.float64)
-    assert FP.smem_bytes(64, 12, torch.float32) < 100_000
+    ValueError naming the limit (never a fallback); the flagship fits, its
+    operator in registers and its block under 10 KB."""
+    FP.check_fits(64, 12, torch.float32, pcg_smem_elems)
+    FP.check_fits(64, 12, torch.float64, pcg_smem_elems)
+    assert FP.smem_bytes(64, 12, torch.float32, pcg_smem_elems) < 10_000
     with pytest.raises(ValueError, match=f"{FP.SMEM_LIMIT}-byte limit"):
-        FP.check_fits(512, 12, torch.float32)
+        FP.check_fits(512, 12, torch.float32, pcg_smem_elems)
     with pytest.raises(ValueError, match="byte limit"):
-        FP.check_fits(160, 12, torch.float64)
+        FP.check_fits(160, 12, torch.float64, pcg_smem_elems)
 
 
 def test_make_batched_pcg_rejects_unported_options():

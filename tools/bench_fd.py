@@ -1,8 +1,8 @@
-"""Time K2 (fd.cu) or K1 (fd_grad.cu) against an older build of the same
-source, in one run.
+"""Time K2 (fd.cu), K1 (fd_grad.cu) or K4 (pcg.cu) against an older build
+of the same source, in one run.
 
-    python tools/bench_fd.py --kernel fd|fd_grad --baseline <dir with the
-        older kernels/csrc: the .cu file and the headers it includes>
+    python tools/bench_fd.py --kernel fd|fd_grad|pcg --baseline <dir with
+        the older kernels/csrc: the .cu file and the headers it includes>
 
 A development script: unpack the older tree with ``git archive`` into a
 directory that ``.gitignore`` lists (``build/``) and point ``--baseline``
@@ -14,8 +14,13 @@ current, baseline), each turn with both timers of kernels/timing.py:
 chip_smoke.py) and ``device_ms`` (the same behind a device spin: device
 time alone).  K2 runs at the flagship main path's lane counts (512,
 32,256, 96,768, 290,304) and a ragged 1,000; K1 at its main-path 32,256
-and 1,000.  One JSON line per (dtype, L), with the device-time ratio
-current / baseline (the means of each side's two turns).
+and 1,000.  K4 solves B = 1, 512 and 1,000 random SS systems (N = 64,
+bs = 12, 40 fixed iterations: the PCG-SS flagship's shape; another count
+with ``--pcg-iters``), each build held against ``pcg_fused_plain``
+(max|d|/max|ref|, equal iteration counts).  One JSON line per (dtype, L
+or B), with the device-time ratio
+current / baseline (the means of each side's two turns), and one line per
+build with its ``ptxas -v`` summary.
 """
 
 from __future__ import annotations
@@ -37,10 +42,19 @@ from trajoptmpcreference_tpu_torch.kernels.timing import (  # noqa: E402
     events_ms,
 )
 from trajoptmpcreference_tpu_torch.models.urdf import serial_arm  # noqa: E402
+from trajoptmpcreference_tpu_torch.ops import btridiag as BT  # noqa: E402
+from trajoptmpcreference_tpu_torch.ops import fused_pcg as FP  # noqa: E402
 from trajoptmpcreference_tpu_torch.ops import lanes  # noqa: E402
+from chip_smoke import ptxas_summary, random_systems  # noqa: E402
 
 LANE_COUNTS = {"fd": (512, 1000, 32_256, 96_768, 290_304),
                "fd_grad": (1000, 32_256)}
+PCG_BATCHES, PCG_N, PCG_BS = (1, 512, 1000), 64, 12
+# the entry functions whose ptxas lines are printed: n = 6, or bs = 12 (K4's
+# first design had one kernel per type; the register and shared variants)
+PTXAS_KEYS = {"fd": ("IfLi6E", "IdLi6E"), "fd_grad": ("IfLi6E", "IdLi6E"),
+              "pcg": ("pcg_kernelIfE", "pcg_kernelIdE", "pcg_regsIfLi12E",
+                      "pcg_regsIdLi12E", "pcg_sharedIfE", "pcg_sharedIdE")}
 PLAIN = {"fd": lanes.fd_lanes, "fd_grad": lanes.fd_grad_lanes}
 CURRENT = {"fd": lanes.fd_kernel, "fd_grad": lanes.fd_grad_kernel}
 
@@ -60,16 +74,83 @@ def _build_baseline(kernel: str, src_dir: pathlib.Path) -> ctypes.CDLL:
     return base
 
 
+def _turns(line, baseline, current):
+    """Time both sides in turns (baseline, current, current, baseline)
+    with both timers; add the device-time ratio to ``line``."""
+    for turn, name in enumerate(("baseline", "current", "current",
+                                 "baseline")):
+        fn = baseline if name == "baseline" else current
+        line[f"{name}_events_ms_{turn}"] = events_ms(fn)
+        line[f"{name}_device_ms_{turn}"] = device_ms(fn)
+    line["device_ratio"] = (
+        (line["current_device_ms_1"] + line["current_device_ms_2"])
+        / (line["baseline_device_ms_0"] + line["baseline_device_ms_3"]))
+    print(json.dumps(line), flush=True)
+
+
+def bench_pcg(base, iters: int) -> None:
+    """K4: the baseline build against the current one, f32 and f64, with
+    ``iters`` fixed iterations."""
+    dev = torch.device("cuda", 0)
+    kw = dict(precond="SS", tol=0.0, max_iter=iters, relative=False)
+    for dt in (torch.float32, torch.float64):
+        sfx = "f32" if dt == torch.float32 else "f64"
+        fn_base = getattr(base, f"tmr_pcg_{sfx}")
+
+        def baseline(d, u, pd, r):
+            B, N, bs = r.shape
+            dx = torch.empty_like(r)
+            it = torch.empty((B,), dtype=torch.int32, device=r.device)
+            rc = fn_base(d.data_ptr(), u.data_ptr(), pd.data_ptr(),
+                         r.data_ptr(), dx.data_ptr(), it.data_ptr(), B, N, bs,
+                         1, 0, iters, 0.0,
+                         torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"baseline pcg failed: cudaError {rc}")
+            return dx, it
+
+        def current(*ops):
+            return FP.pcg_fused_kernel(*ops, **kw)
+
+        for B in PCG_BATCHES:
+            S, b = random_systems(torch, BT, B, PCG_N, PCG_BS, 91, 1.0, dt, dev)
+            ops = FP.pack_operands(S, b, "SS")
+            ref, it_ref = FP.pcg_fused_plain(*ops, **kw)
+            line = {"kernel": "pcg", "dtype": sfx, "B": B, "N": PCG_N,
+                    "bs": PCG_BS, "iters": iters}
+            for name, fn in (("baseline", baseline), ("current", current)):
+                out, it = fn(*ops)
+                line[f"{name}_rel"] = float((out - ref).abs().max()
+                                            / ref.abs().max())
+                line[f"{name}_iters_equal"] = bool(torch.equal(it, it_ref))
+            _turns(line, lambda: baseline(*ops), lambda: current(*ops))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted(LANE_COUNTS), default="fd")
+    ap.add_argument("--kernel", choices=sorted(LANE_COUNTS) + ["pcg"],
+                    default="fd")
     ap.add_argument("--baseline", type=pathlib.Path, required=True)
+    ap.add_argument("--pcg-iters", type=int, default=40,
+                    help="K4's fixed iterations (0: load, one "
+                    "preconditioner application and store)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_fd: no CUDA device")
     kernel = args.kernel
     _build.build_all()
     base = _build_baseline(kernel, args.baseline)
+    out = _build.BUILD_ROOT.parent / "bench_fd"
+    for name, report in (
+            ("baseline", (out / f"{kernel}_baseline.ptxas.txt").read_text()),
+            ("current", _build.ptxas_report(kernel))):
+        found = {key: ptxas_summary(report, key) for key in PTXAS_KEYS[kernel]}
+        print(json.dumps({"kernel": kernel, "build": name, "ptxas": {
+            k: v for k, v in found.items() if v != "no ptxas report"}}),
+            flush=True)
+    if kernel == "pcg":
+        bench_pcg(base, args.pcg_iters)
+        return 0
     robot = serial_arm(6)
     dev = torch.device("cuda", 0)
     for dt in (torch.float32, torch.float64):
@@ -102,15 +183,7 @@ def main(argv=None) -> int:
                 line[f"{name}_rel"] = float((out - ref).abs().max()
                                             / ref.abs().max())
             del ref
-            for turn, name in enumerate(("baseline", "current", "current",
-                                         "baseline")):
-                fn = baseline if name == "baseline" else current
-                line[f"{name}_events_ms_{turn}"] = events_ms(lambda: fn(q, qd, u))
-                line[f"{name}_device_ms_{turn}"] = device_ms(lambda: fn(q, qd, u))
-            line["device_ratio"] = (
-                (line["current_device_ms_1"] + line["current_device_ms_2"])
-                / (line["baseline_device_ms_0"] + line["baseline_device_ms_3"]))
-            print(json.dumps(line), flush=True)
+            _turns(line, lambda: baseline(q, qd, u), lambda: current(q, qd, u))
     return 0
 
 

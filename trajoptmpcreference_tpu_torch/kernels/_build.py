@@ -125,6 +125,11 @@ def library(name: str) -> ctypes.CDLL:
             size = getattr(lib, f"tmr_{name}_smem_elems")
             size.argtypes = [_I]
             size.restype = ctypes.c_longlong
+        if name == "pcg":   # per (N, bs): values per block, the variant
+            lib.tmr_pcg_smem_elems.argtypes = [_I, _I]
+            lib.tmr_pcg_smem_elems.restype = ctypes.c_longlong
+            lib.tmr_pcg_uses_registers.argtypes = [_I, _I]
+            lib.tmr_pcg_uses_registers.restype = ctypes.c_int
         _loaded[name] = lib
     return _loaded[name]
 

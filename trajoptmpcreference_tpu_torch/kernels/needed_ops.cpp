@@ -1,4 +1,5 @@
-// The operations that the lanes kernels' functions need, per lane.
+// The operations that the kernels' functions need: per lane for the lanes
+// kernels, per call for the fused PCG.
 //
 // A kernel's bound (chip_smoke.py) is the larger of the bytes its function
 // must move over the card's memory rate and the operations its function
@@ -23,10 +24,17 @@
 // one robot's sparsity would be lower.  A multiply-add counts as two;
 // sin and cos one each.
 //
+// K4, the fused PCG, is written once more as one scenario's loop (pcg_run
+// below): a product with a symmetric block takes its full rows, bs
+// multiply-adds a row (its packed storage is indexing, not counted); the
+// first and last block rows skip the off-diagonal block they lack; the
+// iterate starts at zero.  Its iterations end where the data ends them, so
+// its count is for the operands given.
+//
 // kernels/opcount.py compiles this file over its counting scalar (the
 // counts) and over double (the values: tests/test_torch_kernel_sources.py
 // holds them against the plain versions in f64, so the counted code does
-// compute each function).  The entries share the lanes kernels' signature.
+// compute each function).  The entries share the kernels' signatures.
 #include <vector>
 
 #include "csrc/lanes_common.cuh"
@@ -621,6 +629,123 @@ void task_vec_lane(const Robot<T>& R, const T* q, const T* qd, T* out, int L,
   }
 }
 
+// K4: one scenario's PCG on S dx = r0 from dx = 0 (ops/fused_pcg.py
+// pcg_fused_plain), each value once
+template <typename T>
+struct PcgSys {
+  const T *D, *U, *P;  // packed diagonal blocks, upper blocks, packed Pinv
+  int N, bs;
+
+  T sym_at(const T* B, int k, int i, int j) const {
+    const int m = i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
+    return B[k * (bs * (bs + 1) / 2) + m];
+  }
+  // row (k, i) of the block-diagonal B (D or Pinv) times v
+  T diag_row(const T* B, const T* v, int k, int i) const {
+    T acc = sym_at(B, k, i, 0) * v[k * bs];
+    for (int j = 1; j < bs; ++j) acc = acc + sym_at(B, k, i, j) * v[k * bs + j];
+    return acc;
+  }
+  // row (k, i) of U_k v_{k+1} + U_{k-1}^T v_{k-1}; false where block row k
+  // has neither (N = 1)
+  bool off_row(const T* v, int k, int i, T& out) const {
+    const int bb = bs * bs;
+    bool nz = false;
+    if (k + 1 < N) {
+      const T* u = U + k * bb + i * bs;
+      out = u[0] * v[(k + 1) * bs];
+      for (int j = 1; j < bs; ++j) out = out + u[j] * v[(k + 1) * bs + j];
+      nz = true;
+    }
+    if (k > 0) {
+      const T* u = U + (k - 1) * bb + i;
+      T c = u[0] * v[(k - 1) * bs];
+      for (int j = 1; j < bs; ++j) c = c + u[j * bs] * v[(k - 1) * bs + j];
+      out = nz ? out + c : c;
+      nz = true;
+    }
+    return nz;
+  }
+  void matvec(const T* v, T* y) const {
+    for (int k = 0; k < N; ++k)
+      for (int i = 0; i < bs; ++i) {
+        const T a = diag_row(D, v, k, i);
+        T off;
+        y[k * bs + i] = off_row(v, k, i, off) ? a + off : a;
+      }
+  }
+  // s = Pinv r: Pinv r, less for SS Pinv (U s_{k+1} + U^T s_{k-1})
+  void apply_P(const T* r, T* s, T* t, bool ss) const {
+    const int n = N * bs;
+    for (int g = 0; g < n; ++g) s[g] = diag_row(P, r, g / bs, g % bs);
+    if (!ss || N == 1) return;
+    for (int g = 0; g < n; ++g) off_row(s, g / bs, g % bs, t[g]);
+    for (int g = 0; g < n; ++g) t[n + g] = diag_row(P, t, g / bs, g % bs);
+    for (int g = 0; g < n; ++g) s[g] = s[g] - t[n + g];
+  }
+};
+
+template <typename T>
+T pcg_dot(const T* a, const T* b, int n) {
+  T acc = a[0] * b[0];
+  for (int g = 1; g < n; ++g) acc = acc + a[g] * b[g];
+  return acc;
+}
+
+template <typename T>
+T pcg_abs(T v) { return v < T(0) ? -v : v; }
+
+// one scenario; returns its iteration count and leaves its dx in x
+template <typename T>
+int pcg_run(const PcgSys<T>& S, const T* r0, T* x, bool ss, bool relative,
+            int max_iter, T tol) {
+  const int n = S.N * S.bs;
+  std::vector<T> r(r0, r0 + n), s(n), p(n), ap(n), t(2 * n);
+  for (int g = 0; g < n; ++g) x[g] = T(0);
+  S.apply_P(r.data(), s.data(), t.data(), ss);
+  T nu = pcg_dot(r.data(), s.data(), n);
+  T thr = tol;
+  if (relative) {
+    thr = tol * pcg_abs(nu);
+    if (thr < T(1e-30)) thr = T(1e-30);
+  }
+  if (pcg_abs(nu) <= thr) return 0;
+  p = s;
+  int it = 0;
+  while (it < max_iter) {
+    S.matvec(p.data(), ap.data());
+    const T pAp = pcg_dot(p.data(), ap.data(), n);
+    const T alpha = nu / (pAp != T(0) ? pAp : T(1));
+    for (int g = 0; g < n; ++g) {
+      x[g] = it == 0 ? alpha * p[g] : x[g] + alpha * p[g];
+      r[g] = r[g] - alpha * ap[g];
+    }
+    S.apply_P(r.data(), s.data(), t.data(), ss);
+    const T nu_new = pcg_dot(r.data(), s.data(), n);
+    ++it;
+    if (pcg_abs(nu_new) <= thr) break;
+    const T beta = nu_new / nu;
+    for (int g = 0; g < n; ++g) p[g] = s[g] + beta * p[g];
+    nu = nu_new;
+  }
+  return it;
+}
+
+// K4 over B scenarios, with the fused PCG's operands (ops/fused_pcg.py)
+template <typename T>
+int pcg(const T* diag_p, const T* upper, const T* pdiag_p, const T* r0, T* dx,
+        int* iters, int B, int N, int bs, int ss, int relative, int max_iter,
+        double tol) {
+  const size_t n = (size_t)N * bs, nD = (size_t)N * (bs * (bs + 1) / 2);
+  for (size_t b = 0; b < (size_t)B; ++b) {
+    const PcgSys<T> S{diag_p + b * nD, upper + b * n * bs, pdiag_p + b * nD,
+                      N, bs};
+    iters[b] = pcg_run(S, r0 + b * n, dx + b * n, ss != 0, relative != 0,
+                       max_iter, T(tol));
+  }
+  return 0;
+}
+
 enum Which { FD = 0, FD_GRAD = 1, TASK_VEC = 2 };
 
 template <typename T, int N>
@@ -664,6 +789,17 @@ TMR_NEED_ENTRY(need_fd_grad_f64, tmr_need::FD_GRAD)
 TMR_NEED_ENTRY(need_task_vec_f64, tmr_need::TASK_VEC)
 #undef TMR_NEED_ENTRY
 
+// K4's values in f64, with the fused PCG's signature
+extern "C" int need_pcg_f64(const void* diag_p, const void* upper,
+                            const void* pdiag_p, const void* r0, void* dx,
+                            void* iters, int B, int N, int bs, int ss,
+                            int relative, int max_iter, double tol, void*) {
+  return tmr_need::pcg<double>((const double*)diag_p, (const double*)upper,
+                               (const double*)pdiag_p, (const double*)r0,
+                               (double*)dx, (int*)iters, B, N, bs, ss,
+                               relative, max_iter, tol);
+}
+
 #ifdef TMR_NEED_COUNT
 // the operations over L lanes of one function (0 fd, 1 fd_grad, 2 task_vec)
 extern "C" long long need_count(int which, const double* q, const double* qd,
@@ -675,6 +811,22 @@ extern "C" long long need_count(int which, const double* q, const double* qd,
   tmr_count::ops = 0;
   tmr_need::run<Num>(which, Q.data(), QD.data(), U.data(), C.data(),
                      O.data(), n, L);
+  return tmr_count::ops;
+}
+
+// the operations of K4's function over B scenarios of these operands
+extern "C" long long need_pcg_count(const double* d, const double* up,
+                                    const double* pd, const double* r0, int B,
+                                    int N, int bs, int ss, int relative,
+                                    int max_iter, double tol) {
+  const size_t nD = (size_t)B * N * bs * (bs + 1) / 2,
+               nU = (size_t)B * N * bs * bs, nR = (size_t)B * N * bs;
+  std::vector<Num> D = nums(d, nD), UP = nums(up, nU), PD = nums(pd, nD),
+                   R0 = nums(r0, nR), DX(nR);
+  std::vector<int> it(B);
+  tmr_count::ops = 0;
+  tmr_need::pcg<Num>(D.data(), UP.data(), PD.data(), R0.data(), DX.data(),
+                     it.data(), B, N, bs, ss, relative, max_iter, tol);
   return tmr_count::ops;
 }
 #endif

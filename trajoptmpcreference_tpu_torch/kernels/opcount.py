@@ -4,21 +4,22 @@ A scalar type that counts every +, -, * and / (and each sin or cos, as one
 operation; a sign flip is not counted) stands in for float.  Two things are
 counted with it:
 
-* what a function needs (``count_needed``): ``needed_ops.cpp`` writes K1-K3's
-  functions once more, one thread per lane, each value computed once.
-  These counts give the lanes kernels' bounds (operations over the card's
-  peak rate) in chip_smoke.py;
+* what a function needs (``count_needed``, ``count_needed_pcg``):
+  ``needed_ops.cpp`` writes K1-K4's functions once more, each value
+  computed once (K1-K3 one thread per lane; K4 one scenario's loop, a
+  symmetric block's product over its full rows).  These counts give the
+  kernels' bounds (operations over the card's peak rate) in chip_smoke.py;
 * what a kernel does (``count_lanes``, ``count_pcg``): each ``csrc/*.cu``
   compiles as plain C++ (no ``__CUDACC__``) into a host loop over the very
-  device functions the card runs, every thread of a group included.  K4's
-  host loop runs each scenario once, serially, so its count is also its
-  need and gives its bound.
+  device functions the card runs, every thread of a group or a block
+  included.
 
 A multiply-add counts as two.
 
     count_needed("fd", packed, n)        # per lane, K1-K3's functions
     count_lanes("fd", packed, n)         # per lane, K1-K3 as written
-    count_pcg(diag_p, upper, pdiag_p, r0, ss=..., ...)   # per call, K4
+    count_needed_pcg(diag_p, upper, pdiag_p, r0, ss=..., ...)  # per call, K4's function
+    count_pcg(diag_p, upper, pdiag_p, r0, ss=..., ...)   # per call, K4 as written
 
 The host compiler is ``g++`` (the CUDA toolkit needs one); the libraries
 go to ``<repo>/build/opcount/<hash>/``.
@@ -175,6 +176,8 @@ def _library(name: str) -> ctypes.CDLL:
         elif name == "needed":
             lib.need_count.argtypes = [_I] + [_P] * 4 + [_I] * 4
             lib.need_count.restype = ctypes.c_longlong
+            lib.need_pcg_count.argtypes = [_P] * 4 + [_I] * 6 + [_D]
+            lib.need_pcg_count.restype = ctypes.c_longlong
         else:
             lib.count_lanes.argtypes = [_P] * 4 + [_I] * 4
             lib.count_lanes.restype = ctypes.c_longlong
@@ -226,13 +229,28 @@ def count_needed(name: str, packed, n: int) -> float:
     return ops / L
 
 
-def count_pcg(diag_p, upper, pdiag_p, r0, *, ss: bool, relative: bool,
-              max_iter: int, tol: float) -> int:
-    """Operations of one K4 call on these operands (ops/fused_pcg.py
-    layout); the loop ends where each scenario's data ends it."""
+def _count_pcg_call(fn, diag_p, upper, pdiag_p, r0, ss, relative, max_iter,
+                    tol) -> int:
     d, up, pd, r = (_f64(a) for a in (diag_p, upper, pdiag_p, r0))
     B, N, bs = r.shape
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    return int(_library("pcg").count_pcg(ptr(d), ptr(up), ptr(pd), ptr(r), B,
-                                         N, bs, int(ss), int(relative),
-                                         max_iter, float(tol)))
+    return int(fn(ptr(d), ptr(up), ptr(pd), ptr(r), B, N, bs, int(ss),
+                  int(relative), max_iter, float(tol)))
+
+
+def count_pcg(diag_p, upper, pdiag_p, r0, *, ss: bool, relative: bool,
+              max_iter: int, tol: float) -> int:
+    """Operations K4 does in one call on these operands (ops/fused_pcg.py
+    layout), every thread of a block; the loop ends where each scenario's
+    data ends it."""
+    return _count_pcg_call(_library("pcg").count_pcg, diag_p, upper, pdiag_p,
+                           r0, ss, relative, max_iter, tol)
+
+
+def count_needed_pcg(diag_p, upper, pdiag_p, r0, *, ss: bool, relative: bool,
+                     max_iter: int, tol: float) -> int:
+    """Operations that K4's function needs for one call on these operands
+    (needed_ops.cpp: each value once, a symmetric block's product over its
+    full rows); the loop ends where each scenario's data ends it."""
+    return _count_pcg_call(_library("needed").need_pcg_count, diag_p, upper,
+                           pdiag_p, r0, ss, relative, max_iter, tol)

@@ -2,8 +2,9 @@
 
 Counterpart of trajoptmpcreference_tpu/ops/pallas_pcg.py.  The whole
 Krylov loop of a scenario runs inside one CUDA thread block
-(kernels/csrc/pcg.cu): the Schur blocks, the preconditioner and the Krylov
-vectors stay in shared memory for the whole solve, where the XLA-style
+(kernels/csrc/pcg.cu), two rows of the Schur system per thread with
+their rows of the operator and the preconditioner in registers (or, for
+shapes over the register budget, in shared memory), where the XLA-style
 ``btridiag.pcg`` launches a dozen small ops per iteration.
 
 Layout, batch-major so one block reads one contiguous scenario:
@@ -66,24 +67,26 @@ def _unpack_sym(packed, bs: int):
     return packed[..., idx].reshape(packed.shape[:-1] + (bs, bs))
 
 
-def smem_bytes(N: int, bs: int, dtype: torch.dtype) -> int:
-    """Shared memory K4 needs for one scenario: packed diagonal and
-    preconditioner, the upper blocks, six Krylov vectors and the
-    reduction scratch (pcg.cu ``smem_elems``)."""
-    tri = bs * (bs + 1) // 2
-    item = torch.empty((), dtype=dtype).element_size()
-    return item * (2 * N * tri + N * bs * bs + 6 * N * bs + 33)
+def smem_bytes(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> int:
+    """Dynamic shared memory of K4's block for one scenario: the kernel's
+    own formula, ``tmr_pcg_smem_elems`` (values per block, for the variant
+    that takes (N, bs)), from the built library unless another build's
+    entry is given."""
+    if smem_elems is None:
+        from trajoptmpcreference_tpu_torch.kernels import _build
+        smem_elems = _build.library("pcg").tmr_pcg_smem_elems
+    return dtype.itemsize * int(smem_elems(N, bs))
 
 
-def check_fits(N: int, bs: int, dtype: torch.dtype) -> None:
-    """Raise ValueError when one scenario's system does not fit the shared
-    memory of one thread block."""
-    need = smem_bytes(N, bs, dtype)
+def check_fits(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> None:
+    """Raise ValueError when K4's block for one scenario does not fit the
+    shared memory of one thread block."""
+    need = smem_bytes(N, bs, dtype, smem_elems)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"K4 keeps a scenario's whole system in shared memory: N={N}, "
-            f"bs={bs} in {dtype} needs {need} bytes, over the "
-            f"{SMEM_LIMIT}-byte limit of one thread block")
+            f"K4 keeps a scenario's vectors (and, at this size, its system) "
+            f"in shared memory: N={N}, bs={bs} in {dtype} needs {need} "
+            f"bytes, over the {SMEM_LIMIT}-byte limit of one thread block")
 
 
 def _precond_code(precond: str) -> int:
@@ -174,8 +177,8 @@ def _check_operands(diag_p, upper, pdiag_p, r0):
 
 def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
                      max_iter: int, relative: bool):
-    """K4 on the card: one thread block per scenario; same arguments and
-    results as ``pcg_fused_plain``."""
+    """K4 on the card: one thread block per scenario, two rows per thread;
+    same arguments and results as ``pcg_fused_plain``."""
     from trajoptmpcreference_tpu_torch.kernels import _build
     code = _precond_code(precond)
     B, N, bs = _check_operands(diag_p, upper, pdiag_p, r0)
