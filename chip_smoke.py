@@ -12,7 +12,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
 3. each of K1-K3 against its plain PyTorch version on the card, f32, at
    the main path's lane counts and a ragged one (K2 at all four of its
    lane counts, 512 to 290,304; K1 also at 1 and 17 lanes, ragged blocks
-   of its 16, and in f64 at 1,000 and 32,256); K4 (the fused PCG)
+   of its 16, and in f64 at 1,000 and 32,256; K3 at all six of its lane
+   counts, 512 to 290,304, at 1, 17 and 1,000, and in f64 at 1,000 and
+   32,256); K4 (the fused PCG)
    against its plain version for J, BJ and SS on SPD and negative-definite
    systems at B = 512, N = 64, bs = 12 (20 fixed iterations, and run to
    convergence against cyclic reduction), on ragged batches, in f64, at
@@ -24,7 +26,8 @@ Phases (each prints its own numbers; any failure exits non-zero):
 4. each kernel's time beside its plain version's and its bound, median of
    20, with two timers (kernels/timing.py): CUDA events around one call
    (``ms``, the yardstick of earlier runs) and device time behind a spin
-   (``device_ms``); K2 at each of its lane counts, K4 at B = 512 and 1.
+   (``device_ms``); K2 and K3 at each of their lane counts, K4 at B = 512
+   and 1.
    The bound is the larger of bytes / 3.35 TB/s and needed operations / 67
    TFLOP/s (f32 off the tensor cores), the H100 SXM data sheet's peaks at
    700 W (K4's operations for the iterations the timed run took);
@@ -71,13 +74,17 @@ L_LADDER = 3 * L_MAIN                     # the 3-rung ladder's K2 call
 L_SIM = B                                 # the MPC sim step's K2 call
 L_COLD = 9 * L_MAIN                       # the cold step's 9-rung ladder
 K2_LANES = [L_SIM, L_RAGGED, L_MAIN, L_LADDER, L_COLD]
+# K3's lane counts on the main path: the sim step's and the line search's
+# terminal costs (B, 3 B, 9 B) and the knot sweeps; then a lone lane, a
+# ragged block and a ragged grid
+K3_LANES = [B, 3 * B, 9 * B, L_MAIN, L_LADDER, L_COLD, 1, 17, L_RAGGED]
 # H100 SXM peaks (data sheet, 700 W): f32 off the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 TOL = {"fd_grad": 1e-4, "fd": 1e-4, "task_vec": 1e-5}   # the JAX package's own
-# K1 in f64 against fd_grad_lanes in f64: the same function, sums in another
-# order
+# K1 and K3 in f64 against fd_grad_lanes / task_vec_L in f64: the same
+# functions, sums in another order
 TOL_F64 = 1e-10
-K1_LANES_F64 = [L_RAGGED, L_MAIN]
+LANES_F64 = [L_RAGGED, L_MAIN]
 # the f64 kernels-on/off solve: max|dU|/max|U| under SOLVE_BAR, or under
 # SOLVE_FLOOR_X times the gap that a one-ulp change of the plain outputs
 # makes, whichever is larger: any change of the solve's rounding moves U by
@@ -168,8 +175,9 @@ def main():
                      f"{lanes.smem_bytes(name, 6, torch.float64)} bytes f64")
         log(f"[ptxas] {name} (f32, n=6): "
             + ptxas_summary(_build.ptxas_report(name), "IfLi6E") + extra)
-    log("[ptxas] fd_grad (f64, n=6): "
-        + ptxas_summary(_build.ptxas_report("fd_grad"), "IdLi6E"))
+    for name in ("fd_grad", "task_vec"):
+        log(f"[ptxas] {name} (f64, n=6): "
+            + ptxas_summary(_build.ptxas_report(name), "IdLi6E"))
     for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
         t = "f" if tag == "f32" else "d"
         log(f"[ptxas] pcg registers variant ({tag}, bs={PCG_BS}): "
@@ -200,7 +208,7 @@ def main():
                K2_LANES),
         "task_vec": (lambda q, qd, u: K.task_vec_kernel(kin.packed(q), 6, q, qd),
                      lambda q, qd, u: kin.task_vec_L(q, qd),
-                     [L_MAIN, L_RAGGED]),
+                     K3_LANES),
     }
     max_abs = {}
     for name, (kern, plain, Ls) in kernels.items():
@@ -217,18 +225,19 @@ def main():
             log(f"[check] {name} L={L}: max|d|/max|ref| = {rel:.3e} "
                 f"(limit {TOL[name]:.0e})")
             assert rel < TOL[name], (name, L, rel)
-    kern, plain, _ = kernels["fd_grad"]
-    for i, L in enumerate(K1_LANES_F64):
-        q, qd, u = (t.double() for t in inputs(L, 84 + i))
-        out, ref = kern(q, qd, u), plain(q, qd, u)
-        torch.cuda.synchronize()
-        assert out.dtype == ref.dtype == torch.float64
-        assert bool(torch.isfinite(out).all())
-        rel = rel_err(out, ref)
-        del out, ref
-        log(f"[check] fd_grad f64 L={L}: max|d|/max|ref| = {rel:.3e} "
-            f"(limit {TOL_F64:.0e})")
-        assert rel < TOL_F64, (L, rel)
+    for name in ("fd_grad", "task_vec"):
+        kern, plain, _ = kernels[name]
+        for i, L in enumerate(LANES_F64):
+            q, qd, u = (t.double() for t in inputs(L, 84 + i))
+            out, ref = kern(q, qd, u), plain(q, qd, u)
+            torch.cuda.synchronize()
+            assert out.dtype == ref.dtype == torch.float64
+            assert bool(torch.isfinite(out).all())
+            rel = rel_err(out, ref)
+            del out, ref
+            log(f"[check] {name} f64 L={L}: max|d|/max|ref| = {rel:.3e} "
+                f"(limit {TOL_F64:.0e})")
+            assert rel < TOL_F64, (name, L, rel)
 
     max_abs["pcg"] = check_pcg(torch, BT, FP, dev)
 
@@ -264,14 +273,17 @@ def main():
             f"{dev_ms[name]:.4f} ms device; plain {plain_ms[name]:.4f} ms "
             f"events; bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
             "(medians of 20)")
-    for L in K2_LANES:
-        q, qd, u = inputs(L, 90)
-        call = lambda: lanes.fd_kernel(dyn.packed(q), 6, q, qd, u)
-        t_ev, t_dev = events_ms(call), device_ms(call)
-        bnd, by = lane_bound("fd", L)
-        log(f"[time] fd L={L}: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
-            f"device; bound {bnd:.4f} ms ({by}), {100 * bnd / t_dev:.1f}% of "
-            "bound in device time (medians of 20)")
+    for name, Ls in (("fd", K2_LANES), ("task_vec", K3_LANES[:6])):
+        kern = kernels[name][0]
+        for L in Ls:
+            q, qd, u = inputs(L, 90)
+            call = lambda: kern(q, qd, u)
+            t_ev, t_dev = events_ms(call), device_ms(call)
+            bnd, by = lane_bound(name, L)
+            log(f"[time] {name} L={L}: kernel {t_ev:.4f} ms events, "
+                f"{t_dev:.4f} ms device; bound {bnd:.4f} ms ({by}), "
+                f"{100 * bnd / t_dev:.1f}% of bound in device time (medians "
+                "of 20)")
     kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
     for Bn in (B, 1):
         S, b = random_systems(torch, BT, Bn, N, PCG_BS, 91, 1.0, f32, dev)

@@ -12,7 +12,10 @@ reductions in another order).  K1 and K2 run as a thread group per lane:
 their host builds run each phase for the group's G threads in turn, once
 in order and once in reverse (a phase in which one thread read what
 another wrote would give another answer), over whole blocks of lanes with
-a ragged tail.  K4 spreads the rows of S over a block's threads: its host
+a ragged tail.  K3 runs one thread per lane: its host build runs each
+block's lanes in order and in reverse, over every robot shape (the
+branched tree with the end effector on each leaf) at 1e-12 in f64.  K4
+spreads the rows of S over a block's threads: its host
 build runs each phase for the block's threads in turn, in order and in
 reverse, for each block size it is built for, for the shared-operator
 variant (any other block size, or more rows than the register variant
@@ -71,10 +74,11 @@ def host_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("host_kernels")
     libs = {}
     procs = {}
-    # K2 and K1 a second time, their groups' threads run in reverse order;
-    # and the functions as counted for the bounds
+    # each kernel a second time: K1's, K2's and K4's groups' threads, and
+    # K3's lanes within a block, in reverse order; and the functions as
+    # counted for the bounds
     builds = [(name, _build.CSRC / f"{name}.cu", []) for name in _build.LIBRARIES]
-    for name in ("fd", "fd_grad", "pcg"):
+    for name in ("fd", "fd_grad", "task_vec", "pcg"):
         builds.append((f"{name}_reversed", _build.CSRC / f"{name}.cu",
                        ["-DTMR_GROUP_REVERSE_TIDS"]))
     builds.append(("needed", opcount.NEEDED, []))
@@ -177,6 +181,37 @@ def test_host_compiled_fd_groups_match_plain(spec, L, order, host_libs,
     out = _run(host_libs[order], robot, q, qd, u, (n, L))
     np.testing.assert_allclose(out, lanes.fd_lanes(robot, q, qd, u),
                                atol=1e-9, rtol=0)
+
+
+# K3 over every robot shape it takes: serial arms, a prismatic joint, and
+# the branched tree with the end effector on each of its two leaves (joints
+# off the chain give zero Jacobian columns)
+K3_SPECS = K2_SPECS[:-1] + ["ytree:0", "ytree:1"]
+# one lane, an odd count inside one block, a ragged last block (task_vec.cu
+# runs 128 lanes per block: 130 is one block and 2 lanes)
+K3_LANES = [1, 11, 130]
+
+
+@pytest.mark.parametrize("order", ["task_vec", "task_vec_reversed"])
+@pytest.mark.parametrize("L", K3_LANES)
+@pytest.mark.parametrize("spec", K3_SPECS)
+def test_host_compiled_task_vec_lanes_match_plain(spec, L, order, host_libs,
+                                                  tmp_path):
+    """K3's lane body over whole blocks of lanes and a ragged tail, the
+    lanes of a block in order and in reverse (each thread's lane reads
+    only the block's constants), against task_vec_L in f64."""
+    name, _, leaf = spec.partition(":")
+    robot = _robot(name, tmp_path)
+    kin = LaneKinematics(robot, leaf=int(leaf or 0))
+    n = robot.n
+    rng = np.random.default_rng(1000 + 10 * n + L + int(leaf or 0))
+    q, qd = (torch.tensor(rng.standard_normal((n, L))) for _ in range(2))
+    out = torch.full((2 * kin.k, L), float("nan"), dtype=torch.float64)
+    packed = kin.packed(q)
+    rc = host_libs[order](q.data_ptr(), qd.data_ptr(), None, packed.data_ptr(),
+                          out.data_ptr(), n, L, None)
+    assert rc == 0
+    np.testing.assert_allclose(out, kin.task_vec_L(q, qd), atol=1e-12, rtol=0)
 
 
 # the shared memory of one Hopper SM: two K2 blocks must fit on one

@@ -1,26 +1,31 @@
-"""Time K2 (fd.cu), K1 (fd_grad.cu) or K4 (pcg.cu) against an older build
-of the same source, in one run.
+"""Time K2 (fd.cu), K1 (fd_grad.cu), K3 (task_vec.cu) or K4 (pcg.cu)
+against an older build of the same source, in one run.
 
-    python tools/bench_fd.py --kernel fd|fd_grad|pcg --baseline <dir with
-        the older kernels/csrc: the .cu file and the headers it includes>
+    python tools/bench_fd.py --kernel fd|fd_grad|task_vec|pcg --baseline
+        <dir with the older kernels/csrc: the .cu file and the headers it
+        includes>
 
 A development script: unpack the older tree with ``git archive`` into a
 directory that ``.gitignore`` lists (``build/``) and point ``--baseline``
 at its ``trajoptmpcreference_tpu_torch/kernels/csrc``.  Both builds are
-held against the plain version (``fd_lanes`` or ``fd_grad_lanes``,
-serial_arm(6), f32 and f64) and timed in turns (baseline, current,
-current, baseline), each turn with both timers of kernels/timing.py:
+held against the plain version (``fd_lanes``, ``fd_grad_lanes`` or
+``LaneKinematics.task_vec_L``, serial_arm(6), f32 and f64) and timed in
+turns (baseline, current, current, baseline), each turn with both timers
+of kernels/timing.py:
 ``events_ms`` (CUDA events around one call, the kernels' ``ms`` in
 chip_smoke.py) and ``device_ms`` (the same behind a device spin: device
 time alone).  K2 runs at the flagship main path's lane counts (512,
 32,256, 96,768, 290,304) and a ragged 1,000; K1 at its main-path 32,256
-and 1,000.  K4 solves B = 1, 512 and 1,000 random SS systems (N = 64,
+and 1,000; K3 at the main path's six (512, 1,536, 4,608, 32,256, 96,768,
+290,304).  K4 solves B = 1, 512 and 1,000 random SS systems (N = 64,
 bs = 12, 40 fixed iterations: the PCG-SS flagship's shape; another count
 with ``--pcg-iters``), each build held against ``pcg_fused_plain``
 (max|d|/max|ref|, equal iteration counts).  One JSON line per (dtype, L
 or B), with the device-time ratio
-current / baseline (the means of each side's two turns), and one line per
-build with its ``ptxas -v`` summary.
+current / baseline (the means of each side's two turns), one line per
+build with its ``ptxas -v`` summary, and one line with the time of an
+empty launch (one block, built beside the baseline) by the same timers:
+the floor under a small kernel's time.
 """
 
 from __future__ import annotations
@@ -45,18 +50,38 @@ from trajoptmpcreference_tpu_torch.models.urdf import serial_arm  # noqa: E402
 from trajoptmpcreference_tpu_torch.ops import btridiag as BT  # noqa: E402
 from trajoptmpcreference_tpu_torch.ops import fused_pcg as FP  # noqa: E402
 from trajoptmpcreference_tpu_torch.ops import lanes  # noqa: E402
+from trajoptmpcreference_tpu_torch.ops.kinematics import (  # noqa: E402
+    LaneKinematics,
+    task_vec_kernel,
+)
 from chip_smoke import ptxas_summary, random_systems  # noqa: E402
 
 LANE_COUNTS = {"fd": (512, 1000, 32_256, 96_768, 290_304),
-               "fd_grad": (1000, 32_256)}
+               "fd_grad": (1000, 32_256),
+               "task_vec": (512, 1536, 4608, 32_256, 96_768, 290_304)}
 PCG_BATCHES, PCG_N, PCG_BS = (1, 512, 1000), 64, 12
 # the entry functions whose ptxas lines are printed: n = 6, or bs = 12 (K4's
 # first design had one kernel per type; the register and shared variants)
 PTXAS_KEYS = {"fd": ("IfLi6E", "IdLi6E"), "fd_grad": ("IfLi6E", "IdLi6E"),
+              "task_vec": ("IfLi6E", "IdLi6E"),
               "pcg": ("pcg_kernelIfE", "pcg_kernelIdE", "pcg_regsIfLi12E",
                       "pcg_regsIdLi12E", "pcg_sharedIfE", "pcg_sharedIdE")}
-PLAIN = {"fd": lanes.fd_lanes, "fd_grad": lanes.fd_grad_lanes}
-CURRENT = {"fd": lanes.fd_kernel, "fd_grad": lanes.fd_grad_kernel}
+PLAIN = {"fd": lanes.fd_lanes, "fd_grad": lanes.fd_grad_lanes,
+         "task_vec": lambda robot, q, qd, u:
+             LaneKinematics(robot).task_vec_L(q, qd)}
+CURRENT = {"fd": lanes.fd_kernel, "fd_grad": lanes.fd_grad_kernel,
+           "task_vec": lambda packed, n, q, qd, u:
+               task_vec_kernel(packed, n, q, qd)}
+# output rows per lane at n = 6
+ROWS = {"fd": (6,), "fd_grad": (6, 18), "task_vec": (6,)}
+_EMPTY = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int tmr_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def _build_baseline(kernel: str, src_dir: pathlib.Path) -> ctypes.CDLL:
@@ -72,6 +97,26 @@ def _build_baseline(kernel: str, src_dir: pathlib.Path) -> ctypes.CDLL:
         getattr(base, f"tmr_{kernel}_{sfx}").argtypes = _build.ARGTYPES[kernel]
         getattr(base, f"tmr_{kernel}_{sfx}").restype = ctypes.c_int
     return base
+
+
+def _empty_launch() -> None:
+    """Print the time of an empty kernel's launch (one block of 32
+    threads) by both timers: the floor a small kernel's time sits on."""
+    out = _build.BUILD_ROOT.parent / "bench_fd"
+    src, lib = out / "empty.cu", out / "libempty.so"
+    src.write_text(_EMPTY)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], capture_output=True, text=True, check=True)
+    fn = ctypes.CDLL(str(lib)).tmr_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel failed to launch")
+
+    print(json.dumps({"kernel": "empty", "grid": 1, "block": 32,
+                      "events_ms": events_ms(call),
+                      "device_ms": device_ms(call)}), flush=True)
 
 
 def _turns(line, baseline, current):
@@ -148,6 +193,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernel": kernel, "build": name, "ptxas": {
             k: v for k, v in found.items() if v != "no ptxas report"}}),
             flush=True)
+    _empty_launch()
     if kernel == "pcg":
         bench_pcg(base, args.pcg_iters)
         return 0
@@ -157,11 +203,10 @@ def main(argv=None) -> int:
         packed = lanes.pack_robot(robot, dt, dev)
         sfx = "f32" if dt == torch.float32 else "f64"
         fn_base = getattr(base, f"tmr_{kernel}_{sfx}")
-        rows = 3 * 6 if kernel == "fd_grad" else None
 
         def baseline(q, qd, u):
-            shape = (6, rows, q.shape[1]) if rows else q.shape
-            out = torch.empty(shape, dtype=q.dtype, device=q.device)
+            out = torch.empty(ROWS[kernel] + (q.shape[1],), dtype=q.dtype,
+                              device=q.device)
             rc = fn_base(q.data_ptr(), qd.data_ptr(), u.data_ptr(),
                          packed.data_ptr(), out.data_ptr(), 6, q.shape[1],
                          torch.cuda.current_stream().cuda_stream)

@@ -1,8 +1,10 @@
 // Shared code for the lanes kernels K1 (fd_grad.cu), K2 (fd.cu) and K3
 // (task_vec.cu) and for kernels/needed_ops.cpp: the packed robot buffer's
 // layout and reader, sin / cos for both types, and the switch over the
-// joint count.  K3 runs one thread per lane (BLOCK threads per block); K1
-// and K2 run a group of threads per lane (fd_group.cuh).
+// joint count.  K1 and K2 run a group of threads per lane (fd_group.cuh):
+// their operations bound them.  K3 runs one thread per lane with the
+// robot's constants in shared memory: latency bounds it, and a group
+// issued more instructions a lane than it saved (task_vec.cu says why).
 //
 // The same sources also compile as plain C++ (no __CUDACC__): TMR_HD then
 // expands to `inline` and each .cu file exposes a host loop over lanes, so
@@ -28,7 +30,6 @@ constexpr int O_S = 0, O_I6 = 6, O_XF = 42, O_AX = 78, O_A2 = 87,
               O_DAMP = 96, O_JTYPE = 97, O_PARENT = 98, O_EF = 99,
               O_TF = 108, O_AXIS = 111, O_EFAX = 114, O_CHAIN = 117;
 constexpr int REVOLUTE = 0;
-constexpr int BLOCK = 128;  // K3's threads per block; one lane per thread
 
 template <typename T>
 TMR_HD T ld(const T* p) {

@@ -109,7 +109,7 @@ _CALLS = {
           "O.data(), n, L, nullptr)",
     "fd_grad": "tmr::fd_grad::launch_fd_grad<Num>(Q.data(), QD.data(), U.data(), "
                "C.data(), O.data(), n, L, nullptr)",
-    "task_vec": "tmr::launch_task_vec<Num>(Q.data(), QD.data(), C.data(), "
+    "task_vec": "tmr::task_vec::launch_task_vec<Num>(Q.data(), QD.data(), C.data(), "
                 "O.data(), n, L, nullptr)",
 }
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

@@ -15,11 +15,18 @@ with w_j / o_j the world joint axis / origin and p the end-effector point
 
 K3 — replaces trajoptmpcreference_tpu/ops/kinematics.py
 ``_pallas_task_vec`` (kernels/csrc/task_vec.cu): the task residual
-[ee_pos_k(q); J(q) qd], k = min(3, n), one thread per lane.  It is bound by
-bytes per lane (2n values in, 2k out) and keeps its live state in
-registers.  Nothing on the solver path differentiates through ``task_vec``
-(the cost's gradient and Gauss-Newton Hessian use ``jacobian_tot_state``
-explicitly), so the kernel needs no autograd.Function.
+[ee_pos_k(q); J(q) qd], k = min(3, n).  Latency bounds it, not its bytes
+(2n values in, 2k out per lane) or its operations: below one wave of
+blocks its time is the launch plus one lane's dependent chain.  So it
+runs one thread per lane with the robot's constants copied into shared
+memory once per block (no load from device memory inside the chain), the
+joints unrolled so that each joint's sin / cos stays in registers (no
+stack beyond libm's sincos), (rotation, origin) pairs composed instead of
+4x4 products, and J qd summed down the chain as it goes.  A group of
+threads per lane issued more instructions a lane than it saved.  Nothing
+on the solver path differentiates through ``task_vec`` (the cost's
+gradient and Gauss-Newton Hessian use ``jacobian_tot_state`` explicitly),
+so the kernel needs no autograd.Function.
 """
 
 from __future__ import annotations
