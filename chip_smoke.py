@@ -49,7 +49,34 @@ Phases (each prints its own numbers; any failure exits non-zero):
 7. the PCG-SS closed loop (flagship.PCG_KNOBS, K4 on): the same episode
    with 4 SQP iterations per step and the Schur systems solved by PCG-SS,
    with K1-K4's launch counts, the same finite check and count, and the
-   quality gate.
+   quality gate;
+8. constrained in-situ, the torque-limited flagship (flagship.AS_KNOBS:
+   +-6 on every torque, hard ACTIVE_SET rows, the condensed Schur path):
+   its cold solve in f64 with the kernels on and off under phase 5's bar
+   (equal exit codes and iteration counts, max|dU|/max|U| under the
+   one-ulp bar, the planted fault above it); then K4 on the condensed
+   Schur operator of a plan whose controls reach ~2x the limit (the
+   number of active rows printed, and asserted above 0), for J, BJ and
+   SS at B = 512, N = 64, bs = 12: in f64 held to pcg_fused_plain element
+   by element after 20 fixed iterations, under the larger of 1e-10 and 3x
+   the gap a one-ulp move of the operands makes (K4 stopped one iteration
+   short must read above it), and both beside the cyclic-reduction solve
+   of the same operator by relative residual (cyclic reduction's median
+   under 1e-4); in f32, where rounding sets this operator's BJ and SS
+   iterates, the residuals of K4, its plain version and the plain version
+   on moved operands are reported;
+9. the ACTIVE_SET closed loop (flagship.AS_KNOBS, 4 SQP iterations a
+   step) and
+10. the AUGMENTED_LAGRANGIAN closed loop (flagship.AL_KNOBS, one AL outer
+   round a step), each run like phase 6 (one cold block-Thomas step, 149
+   cyclic-reduction steps): wall, K1-K3's launches by lane count and
+   episode-weighted device time, bound and loss, the quality gate, and
+   the violation profile of analysis/constrained_flagship.md (median
+   per-scenario peak |u|, max(|u| - 6) over all steps and after step 20,
+   the share of applied samples with |u| >= 6 (1 - 1e-3)); every state and
+   control finite, the gate passed and that share above 0 (the limit
+   binds) are asserted, and for ACTIVE_SET a median peak |u| below the
+   unconstrained loop's (phase 6 prints its own).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -106,6 +133,13 @@ PCG_SHAPE_ITERS = 12
 # the convergence run's relative exit on nu = r' Pinv r: 1e-8 would bound
 # the residual only to ~1e-4 (nu ~ |r|^2), so the error could reach the bar
 PCG_CONV_TOL, PCG_CONV_ITERS = 1e-12, 200
+# cyclic reduction's median relative residual on the f64 condensed
+# operator (phase 8): it solves that operator, so the operator is one a
+# solver can meet (the worst scenarios stay far above; PERF.md section 6)
+CR_F64_TOL = 1e-4
+# the torque-limited flagship's bound and the violation profile's
+# thresholds (analysis/constrained_flagship.md)
+TORQUE_LIMIT, AT_LIMIT_REL, STEADY_FROM = 6.0, 1e-3, 20
 REPLACES = {"fd_grad": "trajoptmpcreference_tpu/ops/lanes.py:444",
             "fd": "trajoptmpcreference_tpu/ops/lanes.py:486",
             "task_vec": "trajoptmpcreference_tpu/ops/kinematics.py:283",
@@ -333,29 +367,11 @@ def main():
     # ---- 6. the main path
     launched = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
                 FP.pcg_fused_kernel)
-    by_lanes, restore = record_lane_counts(lanes, K)
-    torch.cuda.synchronize()
-    for k in launched:
-        k.launches = 0
-    t0 = time.perf_counter()
-    plant, res = F.run_episode(x0s, goals, steps=STEPS, cold_steps=COLD_STEPS,
-                               N=N)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    restore()
-    counts = {"fd_grad": lanes.fd_grad_kernel.launches,
-              "fd": lanes.fd_kernel.launches,
-              "task_vec": K.task_vec_kernel.launches}
-    assert FP.pcg_fused_kernel.launches == 0   # method S runs no PCG
-    gate_ok, finite = report_loop(
-        torch, F, plant, x0s, goals, res, wall, counts, "[main]",
-        f"flagship, {COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
-    assert all(v > 0 for v in counts.values()), counts
-    assert finite
-    assert res.X_applied.shape == (B, 12, STEPS + 1)
-    assert gate_ok
-    episode_weighted(kernels, inputs, by_lanes, lane_bound, device_ms,
-                     "[main]")
+    loop = lambda tag, knobs: flagship_episode(
+        torch, F, lanes, K, FP, x0s, goals, launched, knobs, tag,
+        lambda by: episode_weighted(kernels, inputs, by, lane_bound,
+                                    device_ms, tag))
+    counts, free_profile = loop("[main]", {})
 
     # ---- 7. the PCG-SS closed loop through K4
     pcg_counts = pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched)
@@ -366,6 +382,22 @@ def main():
         f"episode's) = {k4 * dev_ms['pcg']:.2f} ms; bound {k4} x "
         f"{bounds['pcg'][0]:.4f} ms = {k4 * bounds['pcg'][0]:.2f} ms; loss "
         f"{k4 * (dev_ms['pcg'] - bounds['pcg'][0]):.2f} ms")
+
+    # ---- 8. constrained in-situ: the AS flagship, f64 on/off and K4 on
+    # the condensed Schur operator
+    solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev,
+                     knobs=F.AS_KNOBS, tag="[constrained]")
+    condensed_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev)
+
+    # ---- 9, 10. the torque-limited closed loops
+    for tag, knobs in (("[AS]", F.AS_KNOBS), ("[AL]", F.AL_KNOBS)):
+        _, profile = loop(tag, knobs)
+        if tag == "[AS]":
+            log(f"[AS] median per-scenario peak |u| {profile['peak']:.4f} "
+                f"against the unconstrained loop's {free_profile['peak']:.4f}"
+                " (must be below)")
+            assert profile["peak"] < free_profile["peak"], (
+                profile, free_profile)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -549,9 +581,11 @@ def check_pcg(torch, BT, FP, dev):
     return max_abs
 
 
-def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
-    """The flagship's cold solve (phase 5's) in f64 on the card with the
-    kernels on and off; off once more with the plain versions' outputs
+def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev, knobs=None,
+                     tag="[in-situ]"):
+    """The flagship's cold solve (phase 5's; with ``knobs``, e.g. the
+    torque-limited flagship's) in f64 on the card with the kernels on and
+    off; off once more with the plain versions' outputs
     moved by one ulp, the gap that a change of rounding alone makes; and
     on twice more with K1's output moved by TOL_F64 and by FAULT_REL,
     planted faults.  Asserts equal exit codes and outer iteration counts
@@ -571,7 +605,8 @@ def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
             "fault": (True, plain[1:2], FAULT_REL)}
     sols = {}
     for key, (on, targets, rel) in runs.items():
-        _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, use_kernels=on)
+        _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, use_kernels=on,
+                                     **(knobs or {}))
         with moved_outputs(torch, dev, targets, rel):
             sols[key] = solver.solve(X0, U0, cost.default_params._replace(xg=goals))
     b = sols["off"]
@@ -587,12 +622,12 @@ def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
     parity, fault = gap("parity"), gap("fault")
     bar = max(SOLVE_BAR, SOLVE_FLOOR_X * floor)
     a = sols["on"]
-    log(f"[in-situ] solve kernels on vs off, f64: max|dU|/max|U| = {rel:.3e}, "
+    log(f"{tag} solve kernels on vs off, f64: max|dU|/max|U| = {rel:.3e}, "
         f"worst scenario {per[0]:.3e}, median {per[1]:.3e}; off vs off with "
         f"the plain outputs moved one ulp: {floor:.3e}, worst "
         f"{per_floor[0]:.3e}, median {per_floor[1]:.3e}; bar {bar:.3e} (max "
         f"of {SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap)")
-    log(f"[in-situ] f64 on vs off: exit codes equal "
+    log(f"{tag} f64 on vs off: exit codes equal "
         f"{torch.equal(a.exit_sqp, b.exit_sqp)}, outer iterations equal "
         f"{torch.equal(a.outer_iters, b.outer_iters)}; K1's output moved by "
         f"{TOL_F64:.0e} relative vs off: {parity[0]:.3e}, worst "
@@ -603,6 +638,196 @@ def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev):
     assert torch.equal(a.outer_iters, b.outer_iters)
     assert rel < bar, (rel, bar)
     assert fault[0] > bar, (fault, bar)
+
+
+def condensed_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
+    """K4 and its plain version on the condensed Schur operator of the
+    torque-limited (ACTIVE_SET) flagship, from a plan whose controls reach
+    about twice the limit, at its first QP's rho, for J, BJ and SS.
+
+    The bar is in f64.  This cold-start operator is so ill-conditioned
+    that in f32 the BJ and SS iterates are set by rounding (the plain
+    version on operands moved by one ulp lands elsewhere), so no f32 bar,
+    by element or by residual, tells a right kernel from a wrong one.  In
+    f64 both run PCG_FIXED_ITERS fixed
+    iterations and are held element by element, max|d|/max|ref|, under
+    the larger of 1e-10 and SOLVE_FLOOR_X times the gap that moving the
+    operands by one ulp makes in the plain version; K4 stopped one
+    iteration short must read above that bar.  Both then run the solver's
+    own PCG settings beside the cyclic-reduction solve of the same
+    operator, by relative residual: cyclic reduction's median (it solves
+    the operator) must be under CR_F64_TOL, PCG's are reported.  The f32
+    operator's residuals are reported beside the plain version's on
+    operands moved by one ulp, the spread rounding alone makes.  Asserts
+    active rows > 0 and every result finite."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    U0 = 2 * TORQUE_LIMIT * (2 * torch.rand((B, 6, N - 1), generator=g) - 1)
+
+    def operator(dt):
+        x0s = torch.as_tensor(x0s_np, dtype=dt, device=dev)
+        goals = torch.as_tensor(goals_np, dtype=dt, device=dev)
+        X0 = x0s[..., None].expand(B, 12, N).contiguous()
+        _, cost, solver = F.flagship(N=N, dtype=dt, device=dev, **F.AS_KNOBS)
+        kkt, o = solver.kkt, solver.options
+        assert kkt._can_condense_hard()
+        p = knot_params(cost.default_params._replace(xg=goals))
+        blocks = kkt.form_blocks(X0, U0.to(dtype=dt, device=dev), x0s, p, ())
+        active = int(blocks.hact.sum())
+        S, gam, _ = kkt._schur_blocks_condensed(
+            blocks, torch.full((B,), o.rho_init, dtype=dt, device=dev))
+        log(f"[constrained] condensed Schur operator, {str(dt)[6:]}: B={B} "
+            f"N={N} bs={S.bs} (the hard rows eliminated; the generic path's "
+            f"bs would be {kkt.bs}); active hard rows {active} of "
+            f"{blocks.hact.numel()} (U0 uniform in +-{2 * TORQUE_LIMIT:g}, "
+            f"limit +-{TORQUE_LIMIT:g})")
+        assert active > 0
+        assert S.bs == 12
+        return S, gam, o
+
+    def moved(ops):
+        eps = torch.finfo(ops[0].dtype).eps
+        return [t * (1 + eps * (2 * torch.randint(
+            0, 2, t.shape, generator=gen, device=dev) - 1).to(t.dtype))
+            for t in ops]
+
+    def residual(S, gam, x):
+        S64 = BT.BlockTridiag(S.diag.double(), S.upper.double())
+        g64 = gam.double().flatten(1)
+        res = BT.btd_matvec(S64, x.reshape(gam.shape).double()).flatten(1) - g64
+        rel = res.norm(dim=1) / g64.norm(dim=1)
+        return (float(rel.median()), float(rel.max()),
+                float(res.norm() / g64.norm())), rel
+
+    def fmt(r):
+        return f"median {r[0]:.3e} max {r[1]:.3e} whole batch {r[2]:.3e}"
+
+    S, gam, o = operator(torch.float64)
+    cr, _ = residual(S, gam, BT.btd_cyclic_reduction(S, gam))
+    log(f"[constrained] cyclic reduction, f64: |S x - gam|/|gam| per "
+        f"scenario {fmt(cr)} (limit on the median {CR_F64_TOL:.0e})")
+    assert cr[0] < CR_F64_TOL, cr
+    fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
+    short = dict(fixed, max_iter=PCG_FIXED_ITERS - 1)
+    kw = dict(tol=o.exit_tolerance_linSys, max_iter=o.max_iter_linSys,
+              relative=o.pcg_relative)
+    for pre in ("SS", "BJ", "J"):
+        ops = FP.pack_operands(S, gam, pre)
+        out, it = FP.pcg_fused_kernel(*ops, precond=pre, **fixed)
+        ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
+        ulp = rel_err(FP.pcg_fused_plain(*moved(ops), precond=pre, **fixed)[0],
+                      ref)
+        early = rel_err(FP.pcg_fused_kernel(*ops, precond=pre, **short)[0], ref)
+        rel, bar = rel_err(out, ref), max(1e-10, SOLVE_FLOOR_X * ulp)
+        log(f"[constrained] pcg {pre} f64, {PCG_FIXED_ITERS} iterations: "
+            f"kernel vs plain max|d|/max|ref| = {rel:.3e}; plain on the "
+            f"operands moved one ulp {ulp:.3e}; bar {bar:.3e} (max of 1e-10 "
+            f"and {SOLVE_FLOOR_X} x the one-ulp gap); the kernel stopped at "
+            f"{PCG_FIXED_ITERS - 1} iterations {early:.3e} (must exceed the "
+            f"bar); iteration counts equal {torch.equal(it, it_ref)}")
+        assert bool(torch.isfinite(out).all()), pre
+        assert torch.equal(it, it_ref), pre
+        assert rel < bar, (pre, rel, bar)
+        assert early > bar, (pre, early, bar)
+        for name, fn in (("kernel", FP.pcg_fused_kernel),
+                         ("plain", FP.pcg_fused_plain)):
+            x, it = fn(*ops, precond=pre, **kw)
+            r, _ = residual(S, gam, x)
+            log(f"[constrained] pcg {pre} f64 {name}, the solver's settings "
+                f"(relative {kw['tol']:g}, {kw['max_iter']} iterations): "
+                f"|S x - gam|/|gam| per scenario {fmt(r)} ({r[2] / cr[2]:.3e} "
+                f"x cyclic reduction's); iteration counts "
+                + json.dumps(dict(sorted(collections.Counter(
+                    it.tolist()).items()))))
+            assert all(math.isfinite(v) for v in r), (pre, name, r)
+
+    S, gam, o = operator(torch.float32)
+    cr, _ = residual(S, gam, BT.btd_cyclic_reduction(S, gam))
+    log(f"[constrained] cyclic reduction, f32: |S x - gam|/|gam| per "
+        f"scenario {fmt(cr)} (reported)")
+    for pre in ("SS", "BJ", "J"):
+        ops = FP.pack_operands(S, gam, pre)
+        runs = (("kernel", FP.pcg_fused_kernel, ops),
+                ("plain", FP.pcg_fused_plain, ops),
+                ("plain, operands moved one ulp", FP.pcg_fused_plain,
+                 moved(ops)))
+        rels = {}
+        for name, fn, args in runs:
+            x, _ = fn(*args, precond=pre, **kw)
+            r, rels[name] = residual(S, gam, x)
+            log(f"[constrained] pcg {pre} f32 {name}, the solver's settings: "
+                f"|S x - gam|/|gam| per scenario {fmt(r)} (reported)")
+            assert all(math.isfinite(v) for v in r), (pre, name, r)
+        apart = []
+        for name, _, _ in runs[::2]:
+            ratio = rels[name] / rels["plain"]
+            ratio = torch.maximum(ratio, 1 / ratio)
+            apart.append(f"{name} {int((ratio > 2).sum())} (largest ratio "
+                         f"{float(ratio.max()):.3e})")
+        log(f"[constrained] pcg {pre} f32: scenarios whose residual lies more "
+            f"than 2x from the plain version's: " + ", ".join(apart)
+            + " (reported)")
+
+
+def violation_profile(torch, res, tag, label):
+    """The applied torques' profile against the +-6 limit
+    (analysis/constrained_flagship.md): median over scenarios of the peak
+    |u|, max(|u| - 6) over all steps and after STEADY_FROM, the share of
+    applied samples with |u| >= 6 (1 - 1e-3).  Printed and returned."""
+    u = res.U_applied.abs()
+    steady = u[..., STEADY_FROM:]
+    out = dict(peak=float(u.amax((1, 2)).median()),
+               viol=float(u.max() - TORQUE_LIMIT),
+               steady_viol=(float(steady.max() - TORQUE_LIMIT)
+                            if steady.numel() else math.nan),
+               share=float((u >= TORQUE_LIMIT * (1 - AT_LIMIT_REL))
+                           .double().mean()))
+    log(f"{tag} violation profile ({label}): median per-scenario peak |u| "
+        f"{out['peak']:.4f}, max(|u| - {TORQUE_LIMIT:g}) {out['viol']:.4f} "
+        f"over all steps, {out['steady_viol']:.4f} after step {STEADY_FROM}, "
+        f"share of applied samples with |u| >= {TORQUE_LIMIT:g} (1 - "
+        f"{AT_LIMIT_REL:g}) {out['share']:.5f}")
+    return out
+
+
+def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
+                     tag, weighted):
+    """The flagship closed loop (phase 6; with the torque-limited knobs,
+    phases 9 and 10): one cold block-Thomas step, then cyclic reduction,
+    launches counted from 0 over the loop alone, K1-K3's by lane count;
+    wall, quality, episode-weighted device time and the violation
+    profile.  Asserts finite states and controls, the gate, K1-K3
+    launched, no K4 launch, and, with a torque limit, the limit binding (a
+    share at the limit above 0).  Returns (launch counts, profile)."""
+    by_lanes, restore = record_lane_counts(lanes, K)
+    torch.cuda.synchronize()
+    for k in launched:
+        k.launches = 0
+    t0 = time.perf_counter()
+    plant, res = F.run_episode(x0s, goals, steps=STEPS, cold_steps=COLD_STEPS,
+                               N=N, **knobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    restore()
+    counts = {"fd_grad": lanes.fd_grad_kernel.launches,
+              "fd": lanes.fd_kernel.launches,
+              "task_vec": K.task_vec_kernel.launches}
+    assert FP.pcg_fused_kernel.launches == 0    # method S runs no PCG
+    limited = knobs.get("torque_limit", 0.0) > 0
+    label = ((f"torque-limited flagship {json.dumps(knobs)}" if limited
+              else "unconstrained flagship")
+             + f", {COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
+    gate_ok, finite = report_loop(torch, F, plant, x0s, goals, res, wall,
+                                  counts, tag, label)
+    weighted(by_lanes)
+    profile = violation_profile(torch, res, tag, label)
+    assert all(v > 0 for v in counts.values()), counts
+    assert finite
+    assert res.X_applied.shape == (B, 12, STEPS + 1)
+    assert gate_ok
+    if limited:
+        assert profile["share"] > 0, profile
+    return counts, profile
 
 
 @contextlib.contextmanager

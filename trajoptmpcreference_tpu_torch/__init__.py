@@ -4,15 +4,19 @@ trajoptmpcreference_tpu, slice by slice.
 It runs the flagship MPC closed loop: URDF robot models, lanes rigid-body
 dynamics and kinematics with hand-written CUDA kernels (K1 fd_grad, K2 fd,
 K3 task residual) on the card, Euler / semi-implicit integrators, the
-task-space cost, SQP methods "S" (the exact split Schur solve by cyclic
-reduction or block-Thomas) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur
-system by preconditioned CG, optionally through the fused PCG kernel K4)
-and the receding-horizon loop.  Every function takes the scenario batch as
+task-space cost, box limits on joints, velocities and torques in every
+mode (hard ACTIVE_SET / FULL_SET rows, QUADRATIC_PENALTY and
+AUGMENTED_LAGRANGIAN soft limits), SQP methods "S" (the exact Schur solve
+by cyclic reduction or block-Thomas, on the split, condensed or generic
+assembly) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur system by
+preconditioned CG, optionally through the fused PCG kernel K4) and the
+receding-horizon loop, with the torque-limited flagship variants
+(``AS_KNOBS``, ``AL_KNOBS``).  Every function takes the scenario batch as
 an explicit leading dimension.  The package imports torch and numpy,
 never jax.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm
@@ -24,7 +28,11 @@ from trajoptmpcreference_tpu_torch.solvers.costs import (
     QuadraticCostParams,
     UrdfCost,
 )
-from trajoptmpcreference_tpu_torch.solvers.constraints import ConstraintSet
+from trajoptmpcreference_tpu_torch.solvers.constraints import (
+    BoxLimitSpec,
+    ConstraintSet,
+    SoftLimitState,
+)
 from trajoptmpcreference_tpu_torch.solvers.sqp import (
     SQPOptions,
     SQPResult,
@@ -41,10 +49,12 @@ from trajoptmpcreference_tpu_torch.solvers.mpc import (
     make_mpc,
     run_scheduled,
 )
+from trajoptmpcreference_tpu_torch.flagship import AL_KNOBS, AS_KNOBS
 
 __all__ = [
     "RobotModel", "parse_urdf", "serial_arm", "Plant", "URDFPlant", "Cost",
-    "QuadraticCostParams", "UrdfCost", "ConstraintSet", "SQPOptions",
+    "QuadraticCostParams", "UrdfCost", "ConstraintSet", "BoxLimitSpec",
+    "SoftLimitState", "AS_KNOBS", "AL_KNOBS", "SQPOptions",
     "SQPResult", "SQPSolver", "make_sqp", "SQPSolverMethods",
     "MPCSolverMethods", "MPCController", "MPCResult", "make_mpc",
     "run_scheduled", "pcg", "preconditioner", "make_batched_pcg",

@@ -10,6 +10,11 @@ import numpy as np
 import torch
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
+from trajoptmpcreference_tpu_torch.solvers.constraints import (
+    BoxLimitSpec,
+    ConstraintSet,
+    SoftLimitState,
+)
 from trajoptmpcreference_tpu_torch.solvers.costs import QuadraticCostParams
 from trajoptmpcreference_tpu_torch.solvers.sqp import SQPOptions
 
@@ -69,3 +74,29 @@ def options_from_dict(d: dict) -> SQPOptions:
     if unknown:
         raise ValueError(f"unknown SQPOptions fields: {sorted(unknown)}")
     return SQPOptions(**d)
+
+
+def constraint_set_from_numpy(obj) -> ConstraintSet:
+    """The port's ConstraintSet from any object with the ConstraintSet
+    fields (nq, nv, nu, N, limits), each limit with the BoxLimitSpec
+    fields (e.g. the JAX package's)."""
+    names = [f.name for f in dataclasses.fields(BoxLimitSpec)]
+    limits = []
+    for l in obj.limits:
+        kw = {n: getattr(l, n) for n in names}
+        kw["lower"] = tuple(float(v) for v in l.lower)
+        kw["upper"] = tuple(float(v) for v in l.upper)
+        limits.append(BoxLimitSpec(**kw))
+    return ConstraintSet(int(obj.nq), int(obj.nv), int(obj.nu), int(obj.N),
+                         tuple(limits))
+
+
+def soft_state_from_numpy(states, dtype=torch.float64, device="cuda"):
+    """A tuple of the port's SoftLimitState from (mu, lam, phi) triples of
+    arrays (e.g. the JAX package's SoftLimitState), keeping their shapes,
+    as tensors on ``device`` (the card unless the caller asks for
+    another)."""
+    device = require_device(device)
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return tuple(SoftLimitState(t(st[0]), t(st[1]), t(st[2]))
+                 for st in states)

@@ -10,6 +10,12 @@ with the Armijo derivative at the base point), chained by run_scheduled.
 With ``PCG_KNOBS`` (the bench's BENCH_METHOD=PCG-SS BENCH_SQP_ITERS=4) both
 phases take 4 iterations and solve the Schur system by PCG-SS, 40 PCG
 iterations at a relative tolerance of 1e-4.
+
+The torque-limited variant (``__graft_entry__._flagship``'s
+``torque_limit`` / ``torque_mode``, bench.py:104-127) puts box limits on
+all six torques: ``AS_KNOBS`` hard ACTIVE_SET rows (the condensed Schur
+path), ``AL_KNOBS`` an augmented-Lagrangian penalty with one outer round
+per control step; both at 4 SQP iterations.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from trajoptmpcreference_tpu_torch.convert import require_device
 from trajoptmpcreference_tpu_torch.models.plants import URDFPlant
 from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
+from trajoptmpcreference_tpu_torch.solvers.constraints import ConstraintSet
 from trajoptmpcreference_tpu_torch.solvers.costs import UrdfCost
 from trajoptmpcreference_tpu_torch.solvers.mpc import MPCController, run_scheduled
 from trajoptmpcreference_tpu_torch.solvers.sqp import SQPOptions, make_sqp
@@ -33,6 +40,12 @@ COLD_KNOBS = dict(max_iter=4, alpha_min=0.005, alpha_factor=0.5,
 # the PCG flagship (__graft_entry__.py:34-39: "method="PCG-SS",
 # pcg_iters=40, max_iter=4 reproduces the round-2 PCG flagship")
 PCG_KNOBS = dict(method="PCG-SS", max_iter=4, pcg_iters=40)
+# the torque-limited flagship, bench.py:104-125's defaults for
+# BENCH_TORQUE_LIMIT=6 with BENCH_TORQUE_MODE=ACTIVE_SET or the default
+# AUGMENTED_LAGRANGIAN (one AL outer round per control step)
+AS_KNOBS = dict(torque_limit=6.0, torque_mode="ACTIVE_SET", max_iter=4)
+AL_KNOBS = dict(torque_limit=6.0, torque_mode="AUGMENTED_LAGRANGIAN",
+                max_iter=4, max_iter_soft=1)
 DT = 0.015
 # the simulated arm's joint velocity limit: half a turn per control step
 SIM_QD_MAX = math.pi / DT
@@ -41,9 +54,17 @@ SIM_QD_MAX = math.pi / DT
 def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
              use_kernels=True, exact_schur="cr", alpha_min=0.11,
              alpha_factor=0.316, method="S", pcg_iters=40, pcg_tol=1e-4,
-             use_kernel_pcg=False):
+             use_kernel_pcg=False, torque_limit=0.0,
+             torque_mode="AUGMENTED_LAGRANGIAN", torque_band=0.2,
+             max_iter_soft=None, ls_step_clip=math.inf):
     """(plant, cost, solver) with the defaults of __graft_entry__._flagship
-    (the knobs are those the cold phase and the PCG variant change).
+    (the knobs are those the cold phase, the PCG variant and the
+    torque-limited variant change).  torque_limit > 0 bounds every torque
+    to +-torque_limit in ``torque_mode`` (a hard or soft mode, or
+    "ACTIVE_SET+AL": hard rows with activation band ``torque_band`` and an
+    AL limit stacked on the same bound, __graft_entry__.py:150-170);
+    max_iter_soft caps the AL outer rounds per solve; ls_step_clip bounds
+    max|dU| of each QP direction.
     use_kernels selects K1 / K2 / K3 on CUDA tensors (the JAX flagship's
     use_pallas / use_pallas_fd / use_pallas_task); use_kernel_pcg routes
     the PCG methods through the fused PCG, K4 on CUDA tensors (the JAX
@@ -73,8 +94,22 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
         ls_grad_at_base=True,
         rho_init=1e-3,
         rho_min=1e-3,
+        ls_step_clip=ls_step_clip,
+        **({} if max_iter_soft is None else dict(max_iter_soft=max_iter_soft)),
     )
-    solver = make_sqp(plant, cost, None, N, DT, method=method, options=opts,
+    cset = None
+    if torque_limit > 0:
+        cset = ConstraintSet(plant.nq, plant.nv, plant.nu, N)
+        if torque_mode == "ACTIVE_SET+AL":
+            cset = cset.with_torque_limits(torque_limit, -torque_limit,
+                                           "ACTIVE_SET",
+                                           activation_band=torque_band)
+            cset = cset.with_torque_limits(torque_limit, -torque_limit,
+                                           "AUGMENTED_LAGRANGIAN")
+        else:
+            cset = cset.with_torque_limits(torque_limit, -torque_limit,
+                                           torque_mode)
+    solver = make_sqp(plant, cost, cset, N, DT, method=method, options=opts,
                       exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return plant, cost, solver
 

@@ -1,21 +1,30 @@
-"""KKT blocks and the split Schur solve (exact or PCG) for the SQP
+"""KKT blocks and the Schur-complement solve (exact or PCG) for the SQP
 subproblem.
 
-Port of trajoptmpcreference_tpu/solvers/kkt.py for the slice:
-``KKTBlocks``, ``SchurSolveStats``, ``KKTSystem.form_blocks``, and the
-structure-exploiting Schur path for a cost Hessian that is (x, u)-block
-diagonal with no hard-constraint rows (``_schur_blocks_split``,
-``_recover_dxu_split``, ``solve_schur``).  The Schur system is solved
-exactly (block-Thomas or cyclic reduction) or by PCG: ``btridiag.pcg``, or
-with ``use_kernel_pcg`` the fused PCG of ops/fused_pcg.py (kernel K4 on
-CUDA tensors).  The dense KKT (method "N"), the generic and condensed
-Schur assemblies (hard rows) are still to be ported (ROADMAP queue 1).
+Port of trajoptmpcreference_tpu/solvers/kkt.py: ``KKTBlocks``,
+``SchurSolveStats``, ``KKTSystem.form_blocks`` (cost, soft-constraint
+Gauss-Newton terms, dynamics, defects, masked hard rows) and the three
+Schur assemblies ``solve_schur`` dispatches between:
+
+* split (no hard rows, (x, u)-block-diagonal G): ``_schur_blocks_split``
+  and ``_recover_dxu_split``, block size nx;
+* condensed (ACTIVE_SET hard rows, separable G): the hard multipliers
+  eliminated per knot, ``_schur_blocks_condensed`` and
+  ``_recover_condensed``, block size nx;
+* generic (FULL_SET rows, or soft limits that mix x and u):
+  ``schur_blocks`` and ``recover_dxu`` over row groups [defect; hard],
+  block size nx + m.
+
+The Schur system is solved exactly (block-Thomas or cyclic reduction) or
+by PCG: ``btridiag.pcg``, or with ``use_kernel_pcg`` the fused PCG of
+ops/fused_pcg.py (kernel K4 on CUDA tensors).  The dense KKT (method "N")
+is still to be ported (ROADMAP queue 1).
 
 Every block carries the scenario batch as its leading axis: H (B, N, n, n),
-g (B, N, n), A (B, N-1, nx, nx), B (B, N-1, nx, nu), defect (B, N, nx).
-Variable layout matches the reference: z = [x_0, u_0, ..., x_{N-1}]; the
-terminal knot is padded to width n = nx + nu with decoupled unit-diagonal
-phantom controls.
+g (B, N, n), A (B, N-1, nx, nx), B (B, N-1, nx, nu), defect (B, N, nx),
+hval (B, N, m), hjac (B, N, m, n), hact (B, N, m).  Variable layout matches
+the reference: z = [x_0, u_0, ..., x_{N-1}]; the terminal knot is padded to
+width n = nx + nu with decoupled unit-diagonal phantom controls.
 """
 
 from __future__ import annotations
@@ -120,6 +129,11 @@ class KKTSystem:
         Us = U.transpose(-1, -2)                   # (B, N-1, nu)
         ks = torch.arange(N - 1, device=X.device)
         g_s, H_s = cost.stage_derivatives(cost_params, Xs, Us, ks)
+        if cs.has_soft():
+            # soft gradient and its Gauss-Newton term (ref: :149-150)
+            gc = C.stage_soft_jacobian(cs, cstate, Xs, Us, ks)
+            g_s = g_s + gc
+            H_s = H_s + gc[..., :, None] * gc[..., None, :]
         A_s, B_s = plant.step_gradient(Xs, Us, self.dt)
         xpred = plant.step(Xs, Us, self.dt)
         hv_s, hj_s, ha_s = C.stage_hard_rows(cs, Xs, Us, terminal=False)
@@ -128,6 +142,10 @@ class KKTSystem:
         xN = Xk[..., -1:, :]
         kN = torch.arange(N - 1, N, device=X.device)
         g_N, H_N = cost.term_derivatives(cost_params, xN, kN)
+        if cs.has_soft():
+            gcN = C.term_soft_jacobian(cs, cstate, xN, kN)
+            g_N = g_N + gcN
+            H_N = H_N + gcN[..., :, None] * gcN[..., None, :]
         H_pad = X.new_zeros(H_N.shape[:-2] + (n, n))
         H_pad[..., :, :] = torch.eye(n, dtype=X.dtype, device=X.device)
         H_pad[..., :nx, :nx] = H_N
@@ -155,13 +173,73 @@ class KKTSystem:
                          torch.cat([hj_s, hjN_p], dim=-3),
                          torch.cat([ha_s, haN_p], dim=-2))
 
+    # --------------------------------------------- row-group jacobians E, F
+    def _EF(self, blocks: KKTBlocks):
+        """Row group k = [defect rows (nx); hard rows (m)] has jacobian E_k
+        over knot k-1's variables and F_k over knot k's; returns (E, F
+        (B, N, bs, n), rhs (B, N, bs), D (B, N, bs): 0 on live rows, -1 on
+        pinned multipliers)."""
+        nx, n, bs = self.nx, self.n, self.bs
+        H = blocks.H
+        lead = H.shape[:-3]
+        E = H.new_zeros(lead + (self.N, bs, n))
+        E[..., 1:, :nx, :] = -torch.cat([blocks.A, blocks.B], dim=-1)
+        F = H.new_zeros(lead + (self.N, bs, n))
+        F[..., :nx, :nx] = torch.eye(nx, dtype=H.dtype, device=H.device)
+        F[..., nx:, :] = blocks.hjac
+        rhs = torch.cat([blocks.defect, blocks.hval], dim=-1)
+        live = torch.cat([torch.ones_like(blocks.defect, dtype=torch.bool),
+                          blocks.hact], dim=-1)
+        D = torch.where(live, 0.0, -1.0).to(H.dtype)
+        return E, F, rhs, D
+
+    def _regularized_G(self, blocks: KKTBlocks, rho):
+        """G = H + rho I on the real decision variables; the phantom
+        terminal controls keep their exact unit diagonal."""
+        n, nx = self.n, self.nx
+        eye = torch.eye(n, dtype=blocks.H.dtype, device=blocks.H.device)
+        G = blocks.H + rho[..., None, None, None] * eye
+        G[..., -1, nx:, nx:] = eye[nx:, nx:]
+        return G
+
     def _g_split(self) -> Optional[int]:
-        """nx when G is statically (x, u)-block-diagonal, else None."""
+        """nx when G is statically (x, u)-block-diagonal (separable cost
+        Hessian, no soft Gauss-Newton term mixing x and u rows), else
+        None."""
         if getattr(self.cost, "xu_coupled", False):
             return None
         if self.cset.has_soft() and not self.cset.soft_xu_separable():
             return None
         return self.nx
+
+    # ------------------------------------------------- generic Schur path
+    def schur_blocks(self, blocks: KKTBlocks, rho):
+        """S = D - C G^-1 C^T as a BlockTridiag plus gamma over row groups
+        [defect; hard] (ref: solveKKTSystem_Schur,
+        TrajoptMPCReference.py:417-424).  Returns (S, gam, invG, E, F)."""
+        E, F, rhs, D = self._EF(blocks)
+        G = self._regularized_G(blocks, rho)
+        invG = _inv_psd(G, split_at=self._g_split())
+        ET, FT = E.transpose(-1, -2), F.transpose(-1, -2)
+        # S_kk = D_k - E_k invG_{k-1} E_k^T - F_k invG_k F_k^T
+        Sd = torch.diag_embed(D) - _bmm(_bmm(F, invG), FT)
+        Sd[..., 1:, :, :] -= _bmm(_bmm(E[..., 1:, :, :], invG[..., :-1, :, :]),
+                                  ET[..., 1:, :, :])
+        Sd = _sym(Sd)
+        # S_{k,k+1} = -F_k invG_k E_{k+1}^T
+        So = -_bmm(_bmm(F[..., :-1, :, :], invG[..., :-1, :, :]),
+                   ET[..., 1:, :, :])
+        # gamma_k = rhs_k - E_k invG_{k-1} g_{k-1} - F_k invG_k g_k
+        gam = rhs - _bmv(F, _bmv(invG, blocks.g))
+        gam[..., 1:, :] -= _bmv(E[..., 1:, :, :],
+                                _bmv(invG[..., :-1, :, :], blocks.g[..., :-1, :]))
+        return BlockTridiag(Sd, So), gam, invG, E, F
+
+    def recover_dxu(self, invG, E, F, blocks: KKTBlocks, lam):
+        """dxu = G^-1 (g - C^T lam) blockwise (ref: :449-452)."""
+        rhs = blocks.g - (F * lam[..., :, None]).sum(-2)
+        rhs[..., :-1, :] -= (E[..., 1:, :, :] * lam[..., 1:, :, None]).sum(-2)
+        return _bmv(invG, rhs)
 
     def _can_split_schur(self) -> bool:
         """No hard-constraint rows and an (x, u)-block-diagonal G: row group
@@ -213,20 +291,101 @@ class KKTSystem:
         ru[..., :-1, :] += _bmv(blocks.B.transpose(-1, -2), lam[..., 1:, :])
         return torch.cat([_bmv(iGxx, rx), _bmv(iGuu, ru)], dim=-1)
 
+    # --------------------------------------------------- condensed hard rows
+    def _can_condense_hard(self) -> bool:
+        """Hard rows are knot-local, so each knot's hard multipliers couple
+        only to the defect multipliers at knots k and k+1 and are
+        eliminated per knot by one batched (m, m) solve, leaving the
+        nx-block core.  Needs the separable G of the split path, and
+        ACTIVE_SET rows only: FULL_SET keeps both signed rows of a box live,
+        which makes W exactly singular; it stays on the generic path."""
+        return (self.m > 0 and self._g_split() is not None
+                and all(l.mode == "ACTIVE_SET"
+                        for l in self.cset.hard_limits))
+
+    def _schur_blocks_condensed(self, blocks: KKTBlocks, rho):
+        """Schur assembly with the hard rows condensed out (kkt.py:400-452):
+
+          P_k = iGxx_k Jx_k^T,  Q_k = A_k iGxx_k Jx_k^T + B_k iGuu_k Ju_k^T
+          W_k = Jx iGxx Jx^T + Ju iGuu Ju^T + diag(1 on inactive rows)
+          S'_dd[k]    += P_k W_k^-1 P_k^T + Q_{k-1} W_{k-1}^-1 Q_{k-1}^T
+          S'_d,k(k+1) -= P_k W_k^-1 Q_k^T
+          gam'_k      -= P_k W_k^-1 gh_k - Q_{k-1} W_{k-1}^-1 gh_{k-1}
+          gh_k         = hval_k - J_k invG_k g_k
+
+        Inactive rows are masked in J and hval (form_blocks) and get a unit
+        diagonal in W, which pins their multipliers to zero outside the
+        block elimination.  Returns (S, gam, aux)."""
+        nx, m = self.nx, self.m
+        S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
+        Sd, So = S.diag, S.upper
+        Jx = blocks.hjac[..., :nx]           # (B, N, m, nx)
+        Ju = blocks.hjac[..., nx:]           # (B, N, m, nu)
+        P = _bmm(iGxx, Jx.transpose(-1, -2))     # (B, N, nx, m)
+        Uu = _bmm(iGuu, Ju.transpose(-1, -2))    # (B, N, nu, m)
+        W = _bmm(Jx, P) + _bmm(Ju, Uu)           # (B, N, m, m)
+        W = W + torch.diag_embed((~blocks.hact).to(W.dtype))
+        W = _sym(W)
+        iW = _sym(_inv_psd(W))
+        A, Bm = blocks.A, blocks.B
+        Q = _bmm(A, P[..., :-1, :, :]) + _bmm(Bm, Uu[..., :-1, :, :])
+        gx, gu = blocks.g[..., :nx], blocks.g[..., nx:]
+        gh = blocks.hval - _bmv(Jx, _bmv(iGxx, gx)) - _bmv(Ju, _bmv(iGuu, gu))
+        PiW = _bmm(P, iW)                        # (B, N, nx, m)
+        QiW = _bmm(Q, iW[..., :-1, :, :])        # (B, N-1, nx, m)
+        Sd = Sd + _bmm(PiW, P.transpose(-1, -2))
+        Sd[..., 1:, :, :] += _bmm(QiW, Q.transpose(-1, -2))
+        Sd = _sym(Sd)
+        So = So - _bmm(PiW[..., :-1, :, :], Q.transpose(-1, -2))
+        gam = gam - _bmv(PiW, gh)
+        gam[..., 1:, :] += _bmv(QiW, gh[..., :-1, :])
+        return BlockTridiag(Sd, So), gam, (iGxx, iGuu, P, Q, iW, gh)
+
+    def _recover_condensed(self, blocks: KKTBlocks, aux, lam_d):
+        """Back out the hard multipliers, then dxu (kkt.py:454-476):
+
+          lam_h,k = W_k^-1 (-gh_k - P_k^T lam_d,k + Q_k^T lam_d,k+1)
+          rx_k    = gx_k - lam_d,k + A_k^T lam_d,k+1 - Jx_k^T lam_h,k
+          ru_k    = gu_k + B_k^T lam_d,k+1 - Ju_k^T lam_h,k
+
+        Returns (dxu (B, N, n), lam (B, N, nx + m) in the generic [defect;
+        hard] layout, so the MPC carry does not depend on the path)."""
+        nx = self.nx
+        iGxx, iGuu, P, Q, iW, gh = aux
+        r = -gh - _bmv(P.transpose(-1, -2), lam_d)
+        r[..., :-1, :] += _bmv(Q.transpose(-1, -2), lam_d[..., 1:, :])
+        lam_h = _bmv(iW, r)                      # (B, N, m)
+        Jx = blocks.hjac[..., :nx]
+        Ju = blocks.hjac[..., nx:]
+        gx, gu = blocks.g[..., :nx], blocks.g[..., nx:]
+        rx = gx - lam_d - _bmv(Jx.transpose(-1, -2), lam_h)
+        rx[..., :-1, :] += _bmv(blocks.A.transpose(-1, -2), lam_d[..., 1:, :])
+        ru = gu - _bmv(Ju.transpose(-1, -2), lam_h)
+        ru[..., :-1, :] += _bmv(blocks.B.transpose(-1, -2), lam_d[..., 1:, :])
+        dxu = torch.cat([_bmv(iGxx, rx), _bmv(iGuu, ru)], dim=-1)
+        return dxu, torch.cat([lam_d, lam_h], dim=-1)
+
     def solve_schur(self, blocks: KKTBlocks, rho, use_pcg: bool = False,
                     pcg_tol: float = 1e-6, pcg_max_iter: int = 100,
                     precond: str = "SS", guess: Optional[torch.Tensor] = None,
                     pcg_relative: bool = False, trace_residual: bool = False):
         """Schur-complement solve, exact or PCG (ref:
-        TrajoptMPCReference.py:361-455; kkt.py:478-541).  guess (B, N, bs)
-        warm-starts PCG; trace_residual carries the PCG dual trace in the
-        stats (btridiag.pcg path only).  Returns (dxu (B, N, n),
-        lam (B, N, bs), stats)."""
-        if not self._can_split_schur():
-            raise NotImplementedError(
-                "only the split Schur assembly (no hard rows, separable cost "
-                "Hessian) is ported; see ROADMAP.md queue 1")
-        S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
+        TrajoptMPCReference.py:361-455; kkt.py:478-541), on the split,
+        condensed or generic assembly.  guess (B, N, nx + m) warm-starts
+        PCG (sliced to its defect rows on the condensed core);
+        trace_residual carries the PCG dual trace in the stats
+        (btridiag.pcg path only).  Returns (dxu (B, N, n), lam (B, N,
+        nx + m), stats)."""
+        split = self._can_split_schur()
+        condensed = not split and self._can_condense_hard()
+        if split:
+            S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
+        elif condensed:
+            S, gam, caux = self._schur_blocks_condensed(blocks, rho)
+            if guess is not None:
+                guess = guess[..., :self.nx]
+        else:
+            S, gam, invG, E, F = self.schur_blocks(blocks, rho)
         if use_pcg:
             if self.use_kernel_pcg:
                 solve = _fused_pcg_solver(self.N, S.bs, precond, pcg_tol,
@@ -253,7 +412,13 @@ class KKTSystem:
             stats = SchurSolveStats(
                 torch.zeros(batch, dtype=torch.long, device=rho.device),
                 torch.ones(batch, dtype=torch.bool, device=rho.device))
-        return self._recover_dxu_split(iGxx, iGuu, blocks, lam), lam, stats
+        if split:
+            dxu = self._recover_dxu_split(iGxx, iGuu, blocks, lam)
+        elif condensed:
+            dxu, lam = self._recover_condensed(blocks, caux, lam)
+        else:
+            dxu = self.recover_dxu(invG, E, F, blocks, lam)
+        return dxu, lam, stats
 
 
 @functools.lru_cache(maxsize=None)
@@ -262,3 +427,22 @@ def _fused_pcg_solver(N: int, bs: int, precond: str, tol: float,
     """Cached per-(shape, hyperparameter) fused-PCG closure (kkt.py:580-587)."""
     return make_batched_pcg(N, bs, precond=precond, tol=tol,
                             max_iter=max_iter, relative=relative)
+
+
+def _inv_psd(G, split_at: Optional[int] = None):
+    """Batched inverse of small (regularized) SPD blocks (kkt.py:597-619).
+    ``split_at=nx`` asserts the blocks are block-diagonal across the
+    (state, control) partition and inverts the two diagonal blocks
+    separately."""
+    n = G.shape[-1]
+    if split_at is None or split_at >= n:
+        eye = torch.eye(n, dtype=G.dtype, device=G.device)
+        return _solve_batched(G, eye.expand(G.shape), spd=True)
+    nx = split_at
+    Gxx, Guu = G[..., :nx, :nx], G[..., nx:, nx:]
+    eye_x = torch.eye(nx, dtype=G.dtype, device=G.device)
+    eye_u = torch.eye(n - nx, dtype=G.dtype, device=G.device)
+    out = torch.zeros_like(G)
+    out[..., :nx, :nx] = _solve_batched(Gxx, eye_x.expand(Gxx.shape), spd=True)
+    out[..., nx:, nx:] = _solve_batched(Guu, eye_u.expand(Guu.shape), spd=True)
+    return out

@@ -39,8 +39,8 @@ class MPCResult(NamedTuple):
     exit_codes: torch.Tensor   # (B, steps) per-solve exit code
     X_plan_last: torch.Tensor  # (B, nx, N) final plan (warm-start state)
     U_plan_last: torch.Tensor  # (B, nu, N-1)
-    cstate_last: Any           # final soft-constraint state (empty here)
-    lam_last: torch.Tensor     # (B, N, bs) final shifted multipliers
+    cstate_last: Any           # final shifted soft-constraint state
+    lam_last: torch.Tensor     # (B, N, nx + m) final shifted multipliers
 
 
 def _shift_plan(X, U, shift: int):
@@ -65,7 +65,8 @@ class MPCController:
     shift: int = 1
     # plan watchdog (mpc.py:77-86): a non-finite plan or a first control
     # beyond this bound applies zero control for the step and cold-resets
-    # the warm-start carry.  inf = off (reference parity).
+    # the warm-start carry (plan, multipliers, soft-constraint state).
+    # inf = off (reference parity).
     watchdog_u_max: float = float("inf")
     # joint velocity limit of the simulated plant (the port's own; inf =
     # off, as the reference): each simulated state's joint velocities are
@@ -91,8 +92,10 @@ class MPCController:
         B = x0.shape[:-1]
         Xp = x0[..., None].expand(*x0.shape, N) if X_init is None else X_init
         Up = x0.new_zeros(B + (nu, N - 1)) if U_init is None else U_init
-        cstate = (solver.cset.init_state(dtype=x0.dtype, device=x0.device)
-                  if cstate_init is None else cstate_init)
+        # fresh soft-constraint state, also what the watchdog resets to
+        fresh = solver.cset.init_state(dtype=x0.dtype, device=x0.device,
+                                       batch=B)
+        cstate = fresh if cstate_init is None else cstate_init
         lam = (x0.new_zeros(B + (N, solver.kkt.bs)) if lam_init is None
                else lam_init)
         rows = torch.arange(N, device=x0.device)
@@ -120,6 +123,7 @@ class MPCController:
                 Xp = _where(bad, x[..., None].expand_as(Xp), Xp)
                 Up = _where(bad, torch.zeros_like(Up), Up)
                 lam = _where(bad, torch.zeros_like(lam), lam)
+                cstate = C.select_state(bad, fresh, cstate)
             x = self.sim_plant.step(x, u0, dt)
             if math.isfinite(self.sim_qd_max):
                 nq = self.sim_plant.nq

@@ -6,19 +6,24 @@ solve) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur system by PCG,
 warm-started from the previous multipliers; ``use_kernel_pcg`` routes it
 through the fused kernel K4).  It holds the soft-constraint outer loop, the
 SQP iteration, and the L1-merit line search (Nocedal & Wright 18.3), with
-the reference's exit codes, rho schedule and merit weight.
+the reference's exit codes, rho schedule and merit weight.  Box
+constraints enter through the soft penalties in the cost, merit and
+directional derivative, the hard rows in the violation and the KKT
+system, the AL outer loop's state updates, ``ls_step_clip`` (the
+constrained flagship's bound-jump guard) and ``hard_violation_exit_tol``.
 
 Every tensor carries the scenario batch as its leading axis: X (B, nx, N),
 U (B, nu, N-1), scalars (B,).  The JAX ``lax.while_loop``s with freeze gates
 become Python loops over the iteration budget with per-scenario masks: a
 finished scenario's state is left unchanged by ``torch.where`` (the JAX
-batch-invariance freeze, sqp.py:605-615, :673-675), and one host check per
-iteration ends the loop once every scenario is done.
+batch-invariance freeze, sqp.py:605-615, :673-675; the soft-constraint
+state included), and one host check per iteration ends the loop once every
+scenario is done.
 
-Still to be ported (raising NotImplementedError): method "N", the RTI and
-step-clip options (``ls_fixed_alpha``, ``rti_*``, ``ls_step_clip``) and
-horizon sharding.  ``trace_linsys`` carries the PCG dual trace in each
-iteration's QP stats; ``utils.trace`` that reads it is not ported.
+Still to be ported (raising NotImplementedError): method "N", the RTI
+options (``ls_fixed_alpha``, ``rti_*``) and horizon sharding.
+``trace_linsys`` carries the PCG dual trace in each iteration's QP stats;
+``utils.trace`` that reads it is not ported.
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ class SQPOptions:
     ls_fixed_alpha: float = 0.0             # RTI (not ported)
     rti_lean: bool = False                  # RTI (not ported)
     rti_step_clip: float = float("inf")     # RTI (not ported)
-    ls_step_clip: float = float("inf")      # trust-region clip (not ported)
+    ls_step_clip: float = float("inf")      # max|dU| per scenario; inf = off
     exit_tolerance_soft: float = 1e-6
     max_iter_soft: int = 10
     trace_linsys: bool = False              # PCG dual trace in the QP stats
@@ -87,8 +92,8 @@ class SQPResult(NamedTuple):
     outer_iters: torch.Tensor  # (B,) int
     sqp_iters: torch.Tensor    # (B,) int (last outer round)
     J: torch.Tensor            # (B,) final cost
-    viol: torch.Tensor         # (B,) final violation
-    cstate: Any                # soft-constraint state (empty in the slice)
+    viol: torch.Tensor         # (B,) final violation (defects + hard rows)
+    cstate: Any                # final soft-constraint state, (B, 2s, T) each
     lam: torch.Tensor          # (B, N, bs) last multipliers
 
 
@@ -140,41 +145,65 @@ class SQPSolver:
     # ------------------------------------------------------ fused metrics
     def base_metrics(self, X, U, xs, cost_params, cstate):
         """(total_cost, total_violation) (B,) in one knot sweep
-        (ref: TrajoptMPCReference.py:296-310 and :273-294)."""
+        (ref: TrajoptMPCReference.py:296-310 and :273-294): the cost with
+        its soft penalties, the violation with the active hard rows."""
+        cs = self.cset
         Xk, Uk = X.transpose(-1, -2), U.transpose(-1, -2)
-        Js = self.cost.stage_value(cost_params, Xk[..., :-1, :], Uk, self._ks(X))
-        xpred = self.plant.step(Xk[..., :-1, :], Uk, self.dt)
-        cs = (Xk[..., 1:, :] - xpred).abs().sum(-1)
-        J = Js.sum(-1) + self.cost.term_value(cost_params, Xk[..., -1:, :],
-                                              self._kN(X))[..., 0]
-        c = cs.sum(-1) + (X[..., :, 0] - xs).abs().sum(-1)
-        return J, c
+        Xs, XN = Xk[..., :-1, :], Xk[..., -1:, :]
+        ks, kN = self._ks(X), self._kN(X)
+        Js = self.cost.stage_value(cost_params, Xs, Uk, ks)
+        JN = self.cost.term_value(cost_params, XN, kN)
+        if cs.has_soft():
+            Js = Js + C.stage_soft_value(cs, cstate, Xs, Uk, ks)
+            JN = JN + C.term_soft_value(cs, cstate, XN, kN)
+        xpred = self.plant.step(Xs, Uk, self.dt)
+        c_s = (Xk[..., 1:, :] - xpred).abs().sum(-1)
+        c = (X[..., :, 0] - xs).abs().sum(-1)
+        if cs.has_hard():
+            c_s = c_s + C.stage_hard_values(cs, Xs, Uk, False).abs().sum(-1)
+            c = c + C.stage_hard_values(cs, XN, None, True).abs().sum((-1, -2))
+        return Js.sum(-1) + JN[..., 0], c_s.sum(-1) + c
 
     def _diff_metrics(self, X, U, Xc, Uc, xs, cost_params, cstate):
         """(J(Xc,Uc) - J(X,U), violation(Xc,Uc)) in one knot sweep, from
-        per-stage differences (never two totals).  Xc / Uc may carry extra
-        leading dims (the ladder's rungs) that broadcast against X / U."""
+        per-stage differences (never two totals; the soft penalties too,
+        sqp.py:259-261, :278-280).  Xc / Uc may carry extra leading dims
+        (the ladder's rungs) that broadcast against X / U."""
+        cs = self.cset
         Xk, Uk = X.transpose(-1, -2), U.transpose(-1, -2)
         Xck, Uck = Xc.transpose(-1, -2), Uc.transpose(-1, -2)
-        ds = self.cost.stage_value_diff(cost_params, Xk[..., :-1, :], Uk,
-                                        Xck[..., :-1, :], Uck, self._ks(X))
-        xpred = self.plant.step(Xck[..., :-1, :], Uck, self.dt)
-        cs = (Xck[..., 1:, :] - xpred).abs().sum(-1)
-        d = ds.sum(-1) + self.cost.term_value_diff(
-            cost_params, Xk[..., -1:, :], Xck[..., -1:, :], self._kN(X))[..., 0]
-        c = cs.sum(-1) + (Xc[..., :, 0] - xs).abs().sum(-1)
-        return d, c
+        Xs, XN = Xk[..., :-1, :], Xk[..., -1:, :]
+        Xcs, XcN = Xck[..., :-1, :], Xck[..., -1:, :]
+        ks, kN = self._ks(X), self._kN(X)
+        ds = self.cost.stage_value_diff(cost_params, Xs, Uk, Xcs, Uck, ks)
+        dN = self.cost.term_value_diff(cost_params, XN, XcN, kN)
+        if cs.has_soft():
+            ds = ds + (C.stage_soft_value(cs, cstate, Xcs, Uck, ks)
+                       - C.stage_soft_value(cs, cstate, Xs, Uk, ks))
+            dN = dN + (C.term_soft_value(cs, cstate, XcN, kN)
+                       - C.term_soft_value(cs, cstate, XN, kN))
+        xpred = self.plant.step(Xcs, Uck, self.dt)
+        c_s = (Xck[..., 1:, :] - xpred).abs().sum(-1)
+        c = (Xc[..., :, 0] - xs).abs().sum(-1)
+        if cs.has_hard():
+            c_s = c_s + C.stage_hard_values(cs, Xcs, Uck, False).abs().sum(-1)
+            c = c + C.stage_hard_values(cs, XcN, None, True).abs().sum((-1, -2))
+        return ds.sum(-1) + dN[..., 0], c_s.sum(-1) + c
 
     def directional_derivative(self, Xc, Uc, dxu, cost_params, cstate):
-        """D = sum_k grad_k . dxu_k at the candidate trajectory
-        (ref: TrajoptMPCReference.py:636-648)."""
+        """D = sum_k grad_k . dxu_k (+ soft jacobians) at the candidate
+        trajectory (ref: TrajoptMPCReference.py:636-648)."""
+        cs = self.cset
         Xck, Uck = Xc.transpose(-1, -2), Uc.transpose(-1, -2)
-        g = self.cost.stage_gradient(cost_params, Xck[..., :-1, :], Uck,
-                                     self._ks(Xc))
+        Xcs, XcN = Xck[..., :-1, :], Xck[..., -1:, :]
+        ks, kN = self._ks(Xc), self._kN(Xc)
+        g = self.cost.stage_gradient(cost_params, Xcs, Uck, ks)
+        gN = self.cost.term_gradient(cost_params, XcN, kN)
+        if cs.has_soft():
+            g = g + C.stage_soft_jacobian(cs, cstate, Xcs, Uck, ks)
+            gN = gN + C.term_soft_jacobian(cs, cstate, XcN, kN)
         D = (g * dxu[..., :-1, :]).sum((-1, -2))
-        gN = self.cost.term_gradient(cost_params, Xck[..., -1:, :],
-                                     self._kN(Xc))[..., 0, :]
-        return D + (gN * dxu[..., -1, :self.plant.nx]).sum(-1)
+        return D + (gN[..., 0, :] * dxu[..., -1, :self.plant.nx]).sum(-1)
 
     @functools.cached_property
     def _ladders(self):
@@ -293,6 +322,15 @@ class SQPSolver:
         o = self.options
         blocks = self.kkt.form_blocks(X, U, xs, cost_params, cstate)
         dxu, lam, qp_stats = self.solve_qp_from_blocks(blocks, rho, guess)
+        if math.isfinite(o.ls_step_clip):
+            # trust-region clip on the control part of the QP direction,
+            # max|dU| per scenario; one factor keeps dxu on the ray
+            du_max = dxu[..., :-1, self.plant.nx:].abs().amax((-1, -2))
+            scale = torch.minimum(
+                torch.ones_like(du_max),
+                o.ls_step_clip / torch.maximum(du_max,
+                                               torch.full_like(du_max, 1e-30)))
+            dxu = dxu * scale[..., None, None]
         D_base = (blocks.g * dxu).sum((-1, -2)) if o.ls_grad_at_base else None
         ls = self.line_search(X, U, dxu, J, c, merit, xs, cost_params, cstate,
                               mu=mu, D_base=D_base)
@@ -316,6 +354,9 @@ class SQPSolver:
         exit_code = torch.where(error & (rho1 > o.rho_max),
                                 zero + EXIT_RHO_MAX, zero)
         tol_hit = ~error & (-ls.dJ < o.exit_tolerance)
+        if self.cset.has_hard() and math.isfinite(o.hard_violation_exit_tol):
+            hv = C.max_hard_violation(self.cset, X1, U1)
+            tol_hit = tol_hit & (hv <= o.hard_violation_exit_tol)
         exit_code = torch.where(tol_hit, zero + EXIT_TOL, exit_code)
         # max-iter only when no other exit fired this iteration
         exit_code = torch.where(hit_max & (exit_code == 0),
@@ -368,30 +409,34 @@ class SQPSolver:
         o = self.options
         cost_params = knot_params(self.cost.default_params
                                   if cost_params is None else cost_params)
-        if cstate is None:
-            cstate = self.cset.init_state(dtype=x0.dtype, device=x0.device)
-        if guess is None:
-            guess = x0.new_zeros(x0.shape[:-2] + (self.N, self.kkt.bs))
         xs = x0[..., :, 0]
         batch = x0.shape[:-2]
+        if cstate is None:
+            cstate = self.cset.init_state(dtype=x0.dtype, device=x0.device,
+                                          batch=batch)
+        if guess is None:
+            guess = x0.new_zeros(batch + (self.N, self.kkt.bs))
         izero = torch.zeros(batch, dtype=torch.long, device=x0.device)
-        s = dict(X=x0, U=u0, outer_it=izero, exit_soft=izero, exit_sqp=izero,
-                 sqp_iters=izero, J=x0.new_zeros(batch), c=x0.new_zeros(batch),
+        s = dict(X=x0, U=u0, cstate=cstate, outer_it=izero, exit_soft=izero,
+                 exit_sqp=izero, sqp_iters=izero, J=x0.new_zeros(batch),
+                 c=x0.new_zeros(batch),
                  done=torch.zeros(batch, dtype=torch.bool, device=x0.device),
                  lam=guess)
         for _ in range(o.max_iter_soft):
             X1, U1, exit_sqp, iters, J, c, lam = self.sqp_round(
-                s["X"], s["U"], xs, cost_params, cstate, guess0=s["lam"])
+                s["X"], s["U"], xs, cost_params, s["cstate"], guess0=s["lam"])
             # soft-constraint convergence checks (ref: :483-508)
-            max_c = C.max_soft_violation(self.cset, cstate, X1, U1)
+            max_c = C.max_soft_violation(self.cset, s["cstate"], X1, U1)
             exit_soft = torch.where(max_c < o.exit_tolerance_soft,
                                     izero + EXIT_SOFT_CONVERGED, izero)
             hit_max = s["outer_it"] == (o.max_iter_soft - 1)
             exit_soft = torch.where(hit_max & (exit_soft == 0),
                                     izero + EXIT_SOFT_MAX_ITER, exit_soft)
             exiting = exit_soft > 0
-            # the slice's constraint state is empty: nothing to update
-            cstate, mu_at_limit = C.update_all_soft(self.cset, cstate, X1, U1)
+            new_cstate, mu_at_limit = C.update_all_soft(self.cset, s["cstate"],
+                                                        X1, U1)
+            # only update the state when not exiting (ref: :501-507)
+            cstate1 = C.select_state(exiting, s["cstate"], new_cstate)
             exit_soft = torch.where(~exiting & mu_at_limit,
                                     izero + EXIT_SOFT_MU_LIMIT, exit_soft)
             done = exit_soft > 0
@@ -399,25 +444,23 @@ class SQPSolver:
                        sqp_iters=iters, J=J, c=c, done=done, lam=lam,
                        outer_it=torch.where(hit_max | done, s["outer_it"],
                                             s["outer_it"] + 1))
-            s = {k: _where(s["done"], s[k], v) for k, v in new.items()}
+            # batch-invariance freeze (sqp.py:673-675), the soft state too
+            new["cstate"] = C.select_state(s["done"], s["cstate"], cstate1)
+            s = {k: v if k == "cstate" else _where(s["done"], s[k], v)
+                 for k, v in new.items()}
             if bool(s["done"].all()):
                 break
         return SQPResult(X=s["X"], U=s["U"], exit_sqp=s["exit_sqp"],
                          exit_soft=s["exit_soft"], outer_iters=s["outer_it"],
                          sqp_iters=s["sqp_iters"], J=s["J"], viol=s["c"],
-                         cstate=cstate, lam=s["lam"])
+                         cstate=s["cstate"], lam=s["lam"])
 
 
 def _check_options(o: SQPOptions) -> None:
-    unported = []
     if o.ls_fixed_alpha > 0 or o.rti_lean or math.isfinite(o.rti_step_clip):
-        unported.append("RTI (ls_fixed_alpha / rti_lean / rti_step_clip)")
-    if math.isfinite(o.ls_step_clip):
-        unported.append("ls_step_clip")
-    if unported:
         raise NotImplementedError(
-            f"SQPOptions {', '.join(unported)} not ported yet; see ROADMAP.md "
-            "queue 1")
+            "SQPOptions RTI (ls_fixed_alpha / rti_lean / rti_step_clip) not "
+            "ported yet; see ROADMAP.md queue 1")
 
 
 def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
