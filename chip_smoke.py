@@ -76,7 +76,24 @@ Phases (each prints its own numbers; any failure exits non-zero):
    the share of applied samples with |u| >= 6 (1 - 1e-3)); every state and
    control finite, the gate passed and that share above 0 (the limit
    binds) are asserted, and for ACTIVE_SET a median peak |u| below the
-   unconstrained loop's (phase 6 prints its own).
+   unconstrained loop's (phase 6 prints its own);
+11. iLQR in-situ (flagship.ILQR_KNOBS): the iLQR cold solve in f64 with
+   the kernels on and off under phase 5's bar (equal exit codes and
+   iteration counts, max|dU|/max|U| under the one-ulp bar, the planted K1
+   fault above it);
+12. the Riccati pair: the iLQR flagship's first-iterate expansions (B =
+   512, f64) solved by the sequential backward pass and by the log-depth
+   one; K, kff, dv1 and dv2 held under the larger of 1e-9 and 3x the gap
+   that moving the expansions by one ulp makes in the log-depth pass, and
+   the log-depth pass with its combine order not swapped must read above
+   that bar; each pass's events time and device operations;
+13. the iLQR closed loop (flagship.ILQR_KNOBS: one cold step of 4
+   iterations and the 9-rung ladder, then 149 steps of 5 iterations and
+   the 3-rung ladder), run like phase 6: wall beside phase 6's, K1-K3's
+   launches by lane count and episode-weighted device time, bound and
+   loss, the quality gate, every state finite, K1-K3 launched and K4 not;
+   one more steady step profiled (device operations, device time, busy
+   share), as after phase 6.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -372,6 +389,7 @@ def main():
         lambda by: episode_weighted(kernels, inputs, by, lane_bound,
                                     device_ms, tag))
     counts, free_profile = loop("[main]", {})
+    one_step_profile(torch, F, x0s, goals, free_profile["res"], {}, "[main]")
 
     # ---- 7. the PCG-SS closed loop through K4
     pcg_counts = pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched)
@@ -398,6 +416,21 @@ def main():
                 " (must be below)")
             assert profile["peak"] < free_profile["peak"], (
                 profile, free_profile)
+
+    # ---- 11. iLQR in-situ: the cold solve in f64, kernels on/off
+    solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev,
+                     knobs=F.ILQR_KNOBS, tag="[iLQR on/off]")
+
+    # ---- 12. the Riccati pair on the iLQR flagship's first iterate
+    riccati_pair(torch, F, knot_params, events_ms, x0s_np, goals_np, dev)
+
+    # ---- 13. the iLQR closed loop through K1-K3
+    _, ilqr_profile = loop("[iLQR loop]", F.ILQR_KNOBS)
+    one_step_profile(torch, F, x0s, goals, ilqr_profile["res"], F.ILQR_KNOBS,
+                     "[iLQR loop]")
+    log(f"[iLQR loop] wall {ilqr_profile['wall']:.3f} s against the method-S "
+        f"loop's {free_profile['wall']:.3f} s in this run "
+        f"({ilqr_profile['wall'] / free_profile['wall']:.2f}x)")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -584,14 +617,14 @@ def check_pcg(torch, BT, FP, dev):
 def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev, knobs=None,
                      tag="[in-situ]"):
     """The flagship's cold solve (phase 5's; with ``knobs``, e.g. the
-    torque-limited flagship's) in f64 on the card with the kernels on and
-    off; off once more with the plain versions' outputs
+    torque-limited or the iLQR flagship's) in f64 on the card with the
+    kernels on and off; off once more with the plain versions' outputs
     moved by one ulp, the gap that a change of rounding alone makes; and
     on twice more with K1's output moved by TOL_F64 and by FAULT_REL,
     planted faults.  Asserts equal exit codes and outer iteration counts
-    on vs off, max|dU|/max|U| under the bar (SOLVE_BAR or SOLVE_FLOOR_X
-    times the one-ulp gap, whichever is larger), and the FAULT_REL
-    fault's gap above it."""
+    on vs off (iLQR: exit codes and iterations), max|dU|/max|U| under the
+    bar (SOLVE_BAR or SOLVE_FLOOR_X times the one-ulp gap, whichever is
+    larger), and the FAULT_REL fault's gap above it."""
     f64 = torch.float64
     x0s = torch.as_tensor(x0s_np, dtype=f64, device=dev)
     goals = torch.as_tensor(goals_np, dtype=f64, device=dev)
@@ -622,22 +655,120 @@ def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev, knobs=None,
     parity, fault = gap("parity"), gap("fault")
     bar = max(SOLVE_BAR, SOLVE_FLOOR_X * floor)
     a = sols["on"]
+    exit_f, iter_f = (("exit_ilqr", "iters") if hasattr(a, "exit_ilqr")
+                      else ("exit_sqp", "outer_iters"))
+    exits_eq = torch.equal(getattr(a, exit_f), getattr(b, exit_f))
+    iters_eq = torch.equal(getattr(a, iter_f), getattr(b, iter_f))
     log(f"{tag} solve kernels on vs off, f64: max|dU|/max|U| = {rel:.3e}, "
         f"worst scenario {per[0]:.3e}, median {per[1]:.3e}; off vs off with "
         f"the plain outputs moved one ulp: {floor:.3e}, worst "
         f"{per_floor[0]:.3e}, median {per_floor[1]:.3e}; bar {bar:.3e} (max "
         f"of {SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap)")
-    log(f"{tag} f64 on vs off: exit codes equal "
-        f"{torch.equal(a.exit_sqp, b.exit_sqp)}, outer iterations equal "
-        f"{torch.equal(a.outer_iters, b.outer_iters)}; K1's output moved by "
+    log(f"{tag} f64 on vs off: exit codes equal {exits_eq}, {iter_f} equal "
+        f"{iters_eq} (exit codes off "
+        f"{getattr(b, exit_f).bincount().tolist()}); K1's output moved by "
         f"{TOL_F64:.0e} relative vs off: {parity[0]:.3e}, worst "
         f"{parity[1]:.3e}, median {parity[2]:.3e} (reported); by "
         f"{FAULT_REL:.0e}: {fault[0]:.3e}, worst {fault[1]:.3e}, median "
         f"{fault[2]:.3e} (must exceed the bar)")
-    assert torch.equal(a.exit_sqp, b.exit_sqp)
-    assert torch.equal(a.outer_iters, b.outer_iters)
+    assert exits_eq and iters_eq
     assert rel < bar, (rel, bar)
     assert fault[0] > bar, (fault, bar)
+
+
+def device_ops(torch, fn):
+    """(operations, device ms, host ms) of one call of ``fn``, after a
+    warm-up call: the kernels, copies and sets it puts on the device and
+    their summed device time, from torch.profiler's CUDA activity, and the
+    host clock around the profiled call (the profiler's overhead
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), 1e-3 * sum(e.device_time_total for e in ev), 1e3 * host
+
+
+def one_step_profile(torch, F, x0s, goals, res, knobs, tag):
+    """Device operations, device time and busy share of one steady control
+    step continuing the episode ``res`` (its last state and warm carry)."""
+    _, cost, ctrl = F.flagship_mpc(N=N, dtype=x0s.dtype, device=x0s.device,
+                                   **knobs)
+    params = cost.default_params._replace(xg=goals)
+    step = lambda: ctrl.run(res.X_applied[..., -1], 1, X_init=res.X_plan_last,
+                            U_init=res.U_plan_last, cost_params=params,
+                            cstate_init=res.cstate_last,
+                            lam_init=res.lam_last)
+    ops, dev_ms, host_ms = device_ops(torch, step)
+    log(f"{tag} one steady step profiled (torch.profiler, B={B}): {ops} device "
+        f"operations, device time {dev_ms:.2f} ms, host {host_ms:.2f} ms "
+        f"under the profiler, busy share {dev_ms / host_ms:.3f}")
+
+
+def riccati_pair(torch, F, knot_params, events_ms, x0s_np, goals_np, dev):
+    """The iLQR flagship's first-iterate expansions (the zero-control
+    rollout from bench.py's x0, B scenarios, f64, the solver's rho_init)
+    solved by ``backward`` (63 dependent knots) and ``backward_parallel``
+    (the log-depth scan, ceil(log2 N) levels).  At this state the
+    elements invert Huu + rho I = 0.011 I, and the log-depth pass's
+    rounding moves its gains by ~1e-5 (the JAX package's own pair differs
+    as much on the same expansions, f64 on the CPU; PERF.md section 6), so
+    the two are held under the larger of 1e-9 and SOLVE_FLOOR_X times the
+    gap that moving the expansions by one ulp makes in the log-depth pass;
+    the log-depth pass with its combine order NOT swapped (later element
+    first) must read above that bar.  Prints each pass's events time and
+    device operations per call (a finding about launches, not a claim)."""
+    from trajoptmpcreference_tpu_torch.solvers.ilqr import ILQRSolver
+    f64 = torch.float64
+    x0s = torch.as_tensor(x0s_np, dtype=f64, device=dev)
+    goals = torch.as_tensor(goals_np, dtype=f64, device=dev)
+    _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, **F.ILQR_KNOBS)
+    U0 = torch.zeros((B, 6, N - 1), dtype=f64, device=dev)
+    X = torch.cat([x0s[..., None], solver._open_loop(x0s, U0)], -1)
+    ex = solver._expansions(X, U0, knot_params(
+        cost.default_params._replace(xg=goals)), ())
+    rho = torch.full((B,), solver.options.rho_init, dtype=f64, device=dev)
+    seq = solver.backward(*ex, rho)
+    par = solver.backward_parallel(*ex, rho)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    moved = [t * (1 + 2.0 ** -52 * (2 * torch.randint(
+        0, 2, t.shape, generator=gen, device=dev) - 1).to(f64)) for t in ex]
+    par_ulp = solver.backward_parallel(*moved, rho)
+    combine = ILQRSolver._combine
+    ILQRSolver._combine = staticmethod(lambda e1, e2: combine(e2, e1))
+    try:
+        par_unswapped = solver.backward_parallel(*ex, rho)
+    finally:
+        ILQRSolver._combine = staticmethod(combine)
+    torch.cuda.synchronize()
+    for i, name in enumerate(("K", "kff", "dv1", "dv2")):
+        gap, ulp = rel_err(par[i], seq[i]), rel_err(par_ulp[i], par[i])
+        wrong = rel_err(par_unswapped[i], seq[i])
+        bar = max(1e-9, SOLVE_FLOOR_X * ulp)
+        log(f"[Riccati] {name}: log-depth vs sequential max|d|/max|seq| = "
+            f"{gap:.3e}; the log-depth pass on expansions moved one ulp "
+            f"{ulp:.3e}; bar {bar:.3e} (max of 1e-9 and {SOLVE_FLOOR_X} x the "
+            f"one-ulp gap); combine order not swapped {wrong:.3e} (must "
+            f"exceed the bar); sequential pass on the moved expansions "
+            f"{rel_err(solver.backward(*moved, rho)[i], seq[i]):.3e} "
+            "(reported)")
+        assert gap < bar, (name, gap, bar)
+        assert wrong > bar, (name, wrong, bar)
+    assert not bool(seq[4].any()) and not bool(par[4].any())
+    for name, fn in (("sequential", solver.backward),
+                     ("log-depth", solver.backward_parallel)):
+        call = lambda: fn(*ex, rho)
+        ops, dev_ms, _ = device_ops(torch, call)
+        log(f"[Riccati] {name} backward pass, B={B} N={N} f64: "
+            f"{events_ms(call):.3f} ms events (median of 20); {ops} device "
+            f"operations per call, {dev_ms:.3f} ms device time "
+            "(torch.profiler)")
 
 
 def condensed_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
@@ -793,12 +924,14 @@ def violation_profile(torch, res, tag, label):
 def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
                      tag, weighted):
     """The flagship closed loop (phase 6; with the torque-limited knobs,
-    phases 9 and 10): one cold block-Thomas step, then cyclic reduction,
+    phases 9 and 10; with the iLQR knobs, phase 13): one cold step (SQP:
+    block-Thomas), then the steady steps (SQP: cyclic reduction),
     launches counted from 0 over the loop alone, K1-K3's by lane count;
     wall, quality, episode-weighted device time and the violation
     profile.  Asserts finite states and controls, the gate, K1-K3
     launched, no K4 launch, and, with a torque limit, the limit binding (a
-    share at the limit above 0).  Returns (launch counts, profile)."""
+    share at the limit above 0).  Returns (launch counts, profile with
+    the wall)."""
     by_lanes, restore = record_lane_counts(lanes, K)
     torch.cuda.synchronize()
     for k in launched:
@@ -812,15 +945,20 @@ def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
     counts = {"fd_grad": lanes.fd_grad_kernel.launches,
               "fd": lanes.fd_kernel.launches,
               "task_vec": K.task_vec_kernel.launches}
-    assert FP.pcg_fused_kernel.launches == 0    # method S runs no PCG
+    assert FP.pcg_fused_kernel.launches == 0    # methods S and iLQR run no PCG
     limited = knobs.get("torque_limit", 0.0) > 0
-    label = ((f"torque-limited flagship {json.dumps(knobs)}" if limited
-              else "unconstrained flagship")
-             + f", {COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
+    if knobs.get("method") == "iLQR":
+        label = (f"iLQR flagship {json.dumps(knobs)}, {COLD_STEPS} cold "
+                 f"(4 iterations, 9 rungs) + {STEPS - COLD_STEPS} steady")
+    else:
+        label = ((f"torque-limited flagship {json.dumps(knobs)}" if limited
+                  else "unconstrained flagship")
+                 + f", {COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
     gate_ok, finite = report_loop(torch, F, plant, x0s, goals, res, wall,
                                   counts, tag, label)
     weighted(by_lanes)
     profile = violation_profile(torch, res, tag, label)
+    profile["wall"], profile["res"] = wall, res
     assert all(v > 0 for v in counts.values()), counts
     assert finite
     assert res.X_applied.shape == (B, 12, STEPS + 1)

@@ -189,9 +189,11 @@ def test_unported_methods_raise():
     cost = _arm2("S").cost
     with pytest.raises(NotImplementedError, match="'N'"):
         make_sqp(plant, cost, None, 10, 0.1, method="N")
-    for method in ("QP-N", "iLQR"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_mpc(plant, cost, None, 10, 0.1, method=method)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_mpc(plant, cost, None, 10, 0.1, method="QP-N")
+    # MPC "iLQR" is ported: it builds an iLQR controller
+    assert type(make_mpc(plant, cost, None, 10, 0.1,
+                         method="iLQR").solver).__name__ == "ILQRSolver"
     with pytest.raises(ValueError, match="Invalid QP solver"):
         make_sqp(plant, cost, None, 10, 0.1, method="PCG-X")
 

@@ -1,32 +1,45 @@
 """trajoptmpcreference_tpu_torch — the PyTorch + CUDA port of
 trajoptmpcreference_tpu, slice by slice.
 
-It runs the flagship MPC closed loop: URDF robot models, lanes rigid-body
+It runs the flagship MPC closed loop: URDF robot models and the analytic
+plants (double integrator, pendulum, cart-pole), lanes rigid-body
 dynamics and kinematics with hand-written CUDA kernels (K1 fd_grad, K2 fd,
 K3 task residual) on the card, Euler / semi-implicit integrators, the
-task-space cost, box limits on joints, velocities and torques in every
+quadratic, task-space (every Hessian mode), numerical and closed-form arm
+costs, box limits on joints, velocities and torques in every
 mode (hard ACTIVE_SET / FULL_SET rows, QUADRATIC_PENALTY and
 AUGMENTED_LAGRANGIAN soft limits), SQP methods "S" (the exact Schur solve
 by cyclic reduction or block-Thomas, on the split, condensed or generic
 assembly) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur system by
-preconditioned CG, optionally through the fused PCG kernel K4) and the
-receding-horizon loop, with the torque-limited flagship variants
-(``AS_KNOBS``, ``AL_KNOBS``).  Every function takes the scenario batch as
+preconditioned CG, optionally through the fused PCG kernel K4), iLQR
+(sequential or log-depth Riccati pass, soft constraints) and the
+receding-horizon loop, with the torque-limited and iLQR flagship variants
+(``AS_KNOBS``, ``AL_KNOBS``, ``ILQR_KNOBS``).  Every function takes the scenario batch as
 an explicit leading dimension.  The package imports torch and numpy,
 never jax.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm
-from trajoptmpcreference_tpu_torch.models.plants import Plant, URDFPlant
+from trajoptmpcreference_tpu_torch.models.plants import (
+    CartPolePlant,
+    DoubleIntegratorPlant,
+    PendulumPlant,
+    Plant,
+    URDFPlant,
+)
 from trajoptmpcreference_tpu_torch.ops.btridiag import pcg, preconditioner
 from trajoptmpcreference_tpu_torch.ops.fused_pcg import make_batched_pcg
 from trajoptmpcreference_tpu_torch.solvers.costs import (
+    ArmCost,
     Cost,
+    NumericalCost,
+    QuadraticCost,
     QuadraticCostParams,
     UrdfCost,
+    total_cost_diff,
 )
 from trajoptmpcreference_tpu_torch.solvers.constraints import (
     BoxLimitSpec,
@@ -39,6 +52,11 @@ from trajoptmpcreference_tpu_torch.solvers.sqp import (
     SQPSolver,
     make_sqp,
 )
+from trajoptmpcreference_tpu_torch.solvers.ilqr import (
+    ILQRResult,
+    ILQRSolver,
+    make_ilqr,
+)
 from trajoptmpcreference_tpu_torch.solvers.methods import (
     MPCSolverMethods,
     SQPSolverMethods,
@@ -49,12 +67,15 @@ from trajoptmpcreference_tpu_torch.solvers.mpc import (
     make_mpc,
     run_scheduled,
 )
-from trajoptmpcreference_tpu_torch.flagship import AL_KNOBS, AS_KNOBS
+from trajoptmpcreference_tpu_torch.flagship import AL_KNOBS, AS_KNOBS, ILQR_KNOBS
 
 __all__ = [
-    "RobotModel", "parse_urdf", "serial_arm", "Plant", "URDFPlant", "Cost",
-    "QuadraticCostParams", "UrdfCost", "ConstraintSet", "BoxLimitSpec",
-    "SoftLimitState", "AS_KNOBS", "AL_KNOBS", "SQPOptions",
+    "RobotModel", "parse_urdf", "serial_arm", "Plant", "URDFPlant",
+    "DoubleIntegratorPlant", "PendulumPlant", "CartPolePlant", "Cost",
+    "QuadraticCostParams", "QuadraticCost", "UrdfCost", "NumericalCost",
+    "ArmCost", "total_cost_diff", "ConstraintSet", "BoxLimitSpec",
+    "SoftLimitState", "AS_KNOBS", "AL_KNOBS", "ILQR_KNOBS", "ILQRResult",
+    "ILQRSolver", "make_ilqr", "SQPOptions",
     "SQPResult", "SQPSolver", "make_sqp", "SQPSolverMethods",
     "MPCSolverMethods", "MPCController", "MPCResult", "make_mpc",
     "run_scheduled", "pcg", "preconditioner", "make_batched_pcg",

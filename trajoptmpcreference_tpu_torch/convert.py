@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from trajoptmpcreference_tpu_torch.models import plants as P
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.solvers.constraints import (
     BoxLimitSpec,
@@ -46,10 +47,38 @@ def require_device(device) -> torch.device:
 
 def cost_params_from_numpy(Q, QF, R, xg, dtype=torch.float64, device="cuda"):
     """QuadraticCostParams of tensors on ``device`` (the card unless the
-    caller asks for another); ``xg`` may be (d,) or per-scenario (B, d)."""
+    caller asks for another); ``xg`` may be (d,) or per-scenario (B, d).
+    A JAX QuadraticCostParams passes as ``cost_params_from_numpy(*p)``."""
     device = require_device(device)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     return QuadraticCostParams(t(Q), t(QF), t(R), t(xg))
+
+
+# the analytic plants' parameters, by the JAX plant's name
+ANALYTIC_PLANTS = {
+    "double_integrator": (P.DoubleIntegratorPlant, ("mass",)),
+    "pendulum": (P.PendulumPlant, ("mass", "length", "damping", "gravity")),
+    "cartpole": (P.CartPolePlant,
+                 ("cart_mass", "pole_mass", "pole_length", "gravity")),
+}
+
+
+def analytic_plant_from_numpy(name: str, integrator_type: int = 0,
+                              **params) -> P.Plant:
+    """The port's analytic plant ``name`` ("double_integrator",
+    "pendulum" or "cartpole", the JAX plant's ``name``) with the
+    parameters the JAX constructor took, as plain floats (numpy scalars
+    and arrays of one element are accepted); an unknown name or parameter
+    raises."""
+    if name not in ANALYTIC_PLANTS:
+        raise ValueError(f"unknown analytic plant {name!r}; options are "
+                         f"{sorted(ANALYTIC_PLANTS)}")
+    ctor, names = ANALYTIC_PLANTS[name]
+    unknown = set(params) - set(names)
+    if unknown:
+        raise ValueError(f"unknown {name} parameters: {sorted(unknown)}")
+    kw = {k: float(np.asarray(v).reshape(())) for k, v in params.items()}
+    return ctor(integrator_type=int(integrator_type), **kw)
 
 
 def sqp_kwargs_from_jax(method="N", options=None, use_pallas_pcg=False,

@@ -16,6 +16,11 @@ The torque-limited variant (``__graft_entry__._flagship``'s
 all six torques: ``AS_KNOBS`` hard ACTIVE_SET rows (the condensed Schur
 path), ``AL_KNOBS`` an augmented-Lagrangian penalty with one outer round
 per control step; both at 4 SQP iterations.
+
+The iLQR variant (``__graft_entry__._flagship`` with method="iLQR",
+bench.py:81-90) keeps the plant, cost and options and solves each control
+step by iLQR (``ILQR_KNOBS``: 5 iterations a step; the cold step's 4
+iterations and 9-rung ladder as for SQP, its exact_schur unused).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from trajoptmpcreference_tpu_torch.models.plants import URDFPlant
 from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
 from trajoptmpcreference_tpu_torch.solvers.constraints import ConstraintSet
 from trajoptmpcreference_tpu_torch.solvers.costs import UrdfCost
+from trajoptmpcreference_tpu_torch.solvers.ilqr import make_ilqr
 from trajoptmpcreference_tpu_torch.solvers.mpc import MPCController, run_scheduled
 from trajoptmpcreference_tpu_torch.solvers.sqp import SQPOptions, make_sqp
 
@@ -46,6 +52,8 @@ PCG_KNOBS = dict(method="PCG-SS", max_iter=4, pcg_iters=40)
 AS_KNOBS = dict(torque_limit=6.0, torque_mode="ACTIVE_SET", max_iter=4)
 AL_KNOBS = dict(torque_limit=6.0, torque_mode="AUGMENTED_LAGRANGIAN",
                 max_iter=4, max_iter_soft=1)
+# the iLQR flagship, bench.py:81-90's default for BENCH_METHOD=iLQR
+ILQR_KNOBS = dict(method="iLQR", max_iter=5)
 DT = 0.015
 # the simulated arm's joint velocity limit: half a turn per control step
 SIM_QD_MAX = math.pi / DT
@@ -56,15 +64,19 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
              alpha_factor=0.316, method="S", pcg_iters=40, pcg_tol=1e-4,
              use_kernel_pcg=False, torque_limit=0.0,
              torque_mode="AUGMENTED_LAGRANGIAN", torque_band=0.2,
-             max_iter_soft=None, ls_step_clip=math.inf):
+             max_iter_soft=None, ls_step_clip=math.inf,
+             parallel_riccati=False):
     """(plant, cost, solver) with the defaults of __graft_entry__._flagship
-    (the knobs are those the cold phase, the PCG variant and the
-    torque-limited variant change).  torque_limit > 0 bounds every torque
+    (the knobs are those the cold phase, the PCG, torque-limited and iLQR
+    variants change).  torque_limit > 0 bounds every torque
     to +-torque_limit in ``torque_mode`` (a hard or soft mode, or
     "ACTIVE_SET+AL": hard rows with activation band ``torque_band`` and an
     AL limit stacked on the same bound, __graft_entry__.py:150-170);
     max_iter_soft caps the AL outer rounds per solve; ls_step_clip bounds
-    max|dU| of each QP direction.
+    max|dU| of each QP direction.  method="iLQR" builds the iLQR solver
+    (soft torque modes only; ``parallel_riccati`` picks the log-depth
+    backward pass, the bench's BENCH_ILQR_PARALLEL; exact_schur and the
+    PCG knobs are unused).
     use_kernels selects K1 / K2 / K3 on CUDA tensors (the JAX flagship's
     use_pallas / use_pallas_fd / use_pallas_task); use_kernel_pcg routes
     the PCG methods through the fused PCG, K4 on CUDA tensors (the JAX
@@ -109,6 +121,17 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
         else:
             cset = cset.with_torque_limits(torque_limit, -torque_limit,
                                            torque_mode)
+    if method == "iLQR":
+        # __graft_entry__.py:174-192: a hard torque mode is rejected, never
+        # dropped (iLQR has no active-set machinery)
+        if cset is not None and cset.has_hard():
+            raise ValueError(
+                f"iLQR supports soft torque limits only; got torque_mode="
+                f"{torque_mode!r} (use AUGMENTED_LAGRANGIAN or "
+                "QUADRATIC_PENALTY, ref: README.md:17)")
+        solver = make_ilqr(plant, cost, cset, N, DT, options=opts,
+                           parallel_riccati=parallel_riccati)
+        return plant, cost, solver
     solver = make_sqp(plant, cost, cset, N, DT, method=method, options=opts,
                       exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return plant, cost, solver
@@ -142,8 +165,9 @@ def bench_scenarios(B: int, seed: int = 0):
 
 def run_episode(x0s, goals, steps=150, cold_steps=1, **knobs):
     """The bench's scheduled closed loop: ``cold_steps`` steps of the cold
-    controller, then the steady flagship controller.  x0s (B, 12) and goals
-    (B, 6) are tensors on the target device; knobs go to ``flagship_mpc``."""
+    controller (COLD_KNOBS over ``knobs``), then the steady flagship
+    controller.  x0s (B, 12) and goals (B, 6) are tensors on the target
+    device; knobs go to ``flagship_mpc``."""
     knobs = dict(knobs, dtype=x0s.dtype, device=x0s.device)
     plant, cost, ctrl = flagship_mpc(**knobs)
     _, _, ctrl_cold = flagship_mpc(**{**knobs, **COLD_KNOBS})

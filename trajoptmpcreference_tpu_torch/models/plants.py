@@ -1,13 +1,15 @@
-"""Plant layer: URDF dynamics + integrator as batched functions.
+"""Plant layer: dynamics + integrator as batched functions.
 
-Port of ``URDFPlant`` from trajoptmpcreference_tpu/models/plants.py
-(ref: TrajoptPlant.py:274-332).  The analytic plants (double integrator,
-pendulum, cart-pole) are still to be ported (ROADMAP queue 1).
+Port of trajoptmpcreference_tpu/models/plants.py: ``URDFPlant`` (ref:
+TrajoptPlant.py:274-332) and the analytic plants ``DoubleIntegratorPlant``,
+``PendulumPlant`` and ``CartPolePlant``, each with its Jacobian written by
+hand (the JAX cart-pole's ``jax.jacfwd`` becomes the closed form).
 
 Every function takes x (..., nx) and u (..., nu) with any leading batch
-dimensions; they are flattened onto the lane axis of the dynamics
-(ops/lanes.LaneDynamics), so one call over a whole (scenario x knot) batch
-is one kernel launch on the card.
+dimensions.  The URDF plant flattens them onto the lane axis of the
+dynamics (ops/lanes.LaneDynamics), so one call over a whole (scenario x
+knot) batch is one kernel launch on the card; the analytic plants are
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -102,3 +104,98 @@ def URDFPlant(path: Optional[str] = None,
                  integrator_type=integrator_type, xdot=xdot, dxdot=dxdot,
                  step=step, step_gradient=step_gradient, dynamics=dyn,
                  kinematics=kin, robot=robot)
+
+
+# ------------------------------------------------------- analytic plants
+
+def _build(name, nq, nv, nu, xdot, dxdot, integrator_type) -> Plant:
+    step, step_gradient = make_integrator(xdot, dxdot, nq + nv, nu,
+                                          integrator_type)
+    return Plant(name=name, nq=nq, nv=nv, nu=nu,
+                 integrator_type=integrator_type, xdot=xdot, dxdot=dxdot,
+                 step=step, step_gradient=step_gradient)
+
+
+def _rows(*rows):
+    """Stack rows of (...,) entries into (..., len(rows), len(rows[0]))."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def DoubleIntegratorPlant(mass: float = 1.0, integrator_type: int = 0) -> Plant:
+    """1-D double integrator: qdd = u / m."""
+
+    def xdot(x, u):
+        return torch.stack([x[..., 1], u[..., 0] / mass], dim=-1)
+
+    def dxdot(x, u):
+        z = torch.zeros_like(x[..., 0])
+        one = torch.ones_like(z)
+        return _rows((z, one, z), (z, z, one / mass))
+
+    return _build("double_integrator", 1, 1, 1, xdot, dxdot, integrator_type)
+
+
+def PendulumPlant(mass: float = 1.0, length: float = 1.0,
+                  damping: float = 0.0, gravity: float = 9.81,
+                  integrator_type: int = 0) -> Plant:
+    """Point-mass pendulum: ml^2 qdd = u - m g l sin(q) - b qd.
+    theta = 0 hanging down; swing-up goal theta = pi
+    (ref: examples/pendulum.py:13-16)."""
+    ml2 = mass * length * length
+    mgl = mass * gravity * length
+
+    def xdot(x, u):
+        q, qd = x[..., 0], x[..., 1]
+        qdd = (u[..., 0] - mgl * torch.sin(q) - damping * qd) / ml2
+        return torch.stack([qd, qdd], dim=-1)
+
+    def dxdot(x, u):
+        q = x[..., 0]
+        z = torch.zeros_like(q)
+        one = torch.ones_like(q)
+        return _rows((z, one, z),
+                     (-mgl * torch.cos(q) / ml2, -damping / ml2 * one,
+                      one / ml2))
+
+    return _build("pendulum", 1, 1, 1, xdot, dxdot, integrator_type)
+
+
+def CartPolePlant(cart_mass: float = 1.0, pole_mass: float = 0.1,
+                  pole_length: float = 0.5, gravity: float = 9.81,
+                  integrator_type: int = 0) -> Plant:
+    """Cart-pole with force control on the cart.
+
+    State [p, theta, pd, thetad], theta = 0 pole down; the control acts only
+    on the cart (nu = 1).  dxdot is the closed-form Jacobian of the
+    accelerations (the JAX plant takes it by forward-mode autodiff)."""
+    mc, mp, l, g = cart_mass, pole_mass, pole_length, gravity
+
+    def _parts(x, u):
+        th, thd = x[..., 1], x[..., 3]
+        s, c = torch.sin(th), torch.cos(th)
+        denom = mc + mp * s * s
+        pdd = (u[..., 0] + mp * s * (l * thd * thd + g * c)) / denom
+        thdd = ((-u[..., 0] * c - mp * l * thd * thd * c * s
+                 - (mc + mp) * g * s) / (l * denom))
+        return s, c, thd, denom, pdd, thdd
+
+    def xdot(x, u):
+        *_, pdd, thdd = _parts(x, u)
+        return torch.cat([x[..., 2:], torch.stack([pdd, thdd], dim=-1)], dim=-1)
+
+    def dxdot(x, u):
+        s, c, thd, denom, pdd, thdd = _parts(x, u)
+        ddenom = 2 * mp * s * c                      # d denom / d theta
+        dpdd_th = (mp * (c * (l * thd * thd + g * c) - g * s * s)
+                   - pdd * ddenom) / denom
+        dthdd_th = ((u[..., 0] * s - mp * l * thd * thd * (c * c - s * s)
+                     - (mc + mp) * g * c) / (l * denom) - thdd * ddenom / denom)
+        z = torch.zeros_like(s)
+        one = torch.ones_like(s)
+        return _rows((z, z, one, z, z),
+                     (z, z, z, one, z),
+                     (z, dpdd_th, z, 2 * mp * s * l * thd / denom, one / denom),
+                     (z, dthdd_th, z, -2 * mp * l * thd * c * s / (l * denom),
+                      -c / (l * denom)))
+
+    return _build("cartpole", 2, 2, 1, xdot, dxdot, integrator_type)

@@ -1,10 +1,10 @@
 """Receding-horizon MPC loop over a batch of scenarios.
 
-Port of trajoptmpcreference_tpu/solvers/mpc.py for the methods "QP-S" and
-"QP-PCG-J" / "QP-PCG-BJ" / "QP-PCG-SS": each
-control step re-solves the horizon problem warm-started from the shifted
-previous plan and multipliers, applies the first control to the simulated
-plant and advances.  The JAX ``lax.scan`` over control steps becomes a
+Port of trajoptmpcreference_tpu/solvers/mpc.py for the methods "iLQR",
+"QP-S" and "QP-PCG-J" / "QP-PCG-BJ" / "QP-PCG-SS": each control step
+re-solves the horizon problem warm-started from the shifted previous plan
+(and, for the SQP methods, multipliers), applies the first control to the
+simulated plant and advances.  The JAX ``lax.scan`` over control steps becomes a
 Python loop; every tensor carries the scenario batch as its leading axis.
 """
 
@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
 from trajoptmpcreference_tpu_torch.models.plants import Plant
 from trajoptmpcreference_tpu_torch.solvers import constraints as C
 from trajoptmpcreference_tpu_torch.solvers.costs import Cost
+from trajoptmpcreference_tpu_torch.solvers.ilqr import ILQRSolver, make_ilqr
 from trajoptmpcreference_tpu_torch.solvers.sqp import (
     SQPOptions,
     SQPSolver,
@@ -40,7 +41,8 @@ class MPCResult(NamedTuple):
     X_plan_last: torch.Tensor  # (B, nx, N) final plan (warm-start state)
     U_plan_last: torch.Tensor  # (B, nu, N-1)
     cstate_last: Any           # final shifted soft-constraint state
-    lam_last: torch.Tensor     # (B, N, nx + m) final shifted multipliers
+    lam_last: torch.Tensor     # (B, N, nx + m) final shifted multipliers;
+    #                            (B, 0) for iLQR, which has none
 
 
 def _shift_plan(X, U, shift: int):
@@ -58,9 +60,9 @@ def _shift_plan(X, U, shift: int):
 
 @dataclasses.dataclass(frozen=True)
 class MPCController:
-    """A receding-horizon controller around an SQP solver."""
+    """A receding-horizon controller around an SQP or iLQR solver."""
 
-    solver: SQPSolver
+    solver: Union[SQPSolver, ILQRSolver]
     sim_plant: Plant          # the "true" plant used to propagate the state
     shift: int = 1
     # plan watchdog (mpc.py:77-86): a non-finite plan or a first control
@@ -90,14 +92,17 @@ class MPCController:
         N, dt = solver.N, solver.dt
         nu = self.plant.nu
         B = x0.shape[:-1]
+        is_sqp = isinstance(solver, SQPSolver)
         Xp = x0[..., None].expand(*x0.shape, N) if X_init is None else X_init
         Up = x0.new_zeros(B + (nu, N - 1)) if U_init is None else U_init
         # fresh soft-constraint state, also what the watchdog resets to
         fresh = solver.cset.init_state(dtype=x0.dtype, device=x0.device,
                                        batch=B)
         cstate = fresh if cstate_init is None else cstate_init
-        lam = (x0.new_zeros(B + (N, solver.kkt.bs)) if lam_init is None
-               else lam_init)
+        if lam_init is not None:
+            lam = lam_init
+        else:
+            lam = x0.new_zeros(B + ((N, solver.kkt.bs) if is_sqp else (0,)))
         rows = torch.arange(N, device=x0.device)
         x = x0
         xs_, us_, Js, its, codes = [], [], [], [], []
@@ -105,16 +110,24 @@ class MPCController:
             # the current state enters the plan head
             Xp = Xp.clone()
             Xp[..., :, 0] = x
-            res = solver.solve(Xp, Up, cost_params=cost_params, cstate=cstate,
-                               guess=lam)
+            if is_sqp:
+                res = solver.solve(Xp, Up, cost_params=cost_params,
+                                   cstate=cstate, guess=lam)
+                it, code = res.sqp_iters, res.exit_sqp
+                # shift the multipliers like the plan and zero-fill the
+                # vacated tail rows (mpc.py:145-154)
+                lam = torch.roll(res.lam, -self.shift, dims=-2)
+                lam = torch.where((rows < N - self.shift)[:, None], lam,
+                                  torch.zeros_like(lam))
+            else:
+                # iLQR: no multiplier warm start; the lam carry passes
+                # through (mpc.py:131-134)
+                res = solver.solve(Xp, Up, cost_params=cost_params,
+                                   cstate=cstate)
+                it, code = res.iters, res.exit_ilqr
             u0 = res.U[..., :, 0]
             Xp, Up = _shift_plan(res.X, res.U, self.shift)
             cstate = C.shift_all_soft(solver.cset, res.cstate, self.shift)
-            # shift the multipliers like the plan and zero-fill the vacated
-            # tail rows (mpc.py:145-154)
-            lam = torch.roll(res.lam, -self.shift, dims=-2)
-            lam = torch.where((rows < N - self.shift)[:, None], lam,
-                              torch.zeros_like(lam))
             if math.isfinite(self.watchdog_u_max):
                 bad = (~torch.isfinite(res.U).flatten(-2).all(-1)
                        | ~torch.isfinite(res.X).flatten(-2).all(-1)
@@ -132,8 +145,8 @@ class MPCController:
             xs_.append(x)
             us_.append(u0)
             Js.append(res.J)
-            its.append(res.sqp_iters)
-            codes.append(res.exit_sqp)
+            its.append(it)
+            codes.append(code)
         return MPCResult(X_applied=torch.stack([x0] + xs_, dim=-1),
                          U_applied=torch.stack(us_, dim=-1),
                          J_solve=torch.stack(Js, dim=-1),
@@ -177,22 +190,25 @@ def make_mpc(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              sim_plant: Optional[Plant] = None,
              shift: int = 1, use_kernel_pcg: bool = False) -> MPCController:
     """Build a receding-horizon MPC controller (ref:
-    TrajoptMPCReference.py:21-27; mpc.py:229-260).  The port runs 'QP-S'
-    and 'QP-PCG-*' ('iLQR' and 'QP-N' are not ported); use_kernel_pcg goes
-    to make_sqp."""
+    TrajoptMPCReference.py:21-27; mpc.py:229-260).  The port runs 'iLQR',
+    'QP-S' and 'QP-PCG-*' ('QP-N' is not ported); use_kernel_pcg goes to
+    make_sqp."""
     from trajoptmpcreference_tpu_torch.solvers.methods import method_str
     method = method_str(method)
     if method not in MPC_METHODS:
         raise ValueError(f"Invalid MPC method {method!r}; options are "
                          f"{MPC_METHODS} (ref: TrajoptMPCReference.py:21-27)")
-    if method in ("iLQR", "QP-N"):
+    if method == "QP-N":
         raise NotImplementedError(
             f"MPC method {method!r} is not ported yet; see ROADMAP.md queue 1")
     if options is None:
         # the reference's own example disables the lower reduction-ratio
         # bound (ref: examples/twolinks.py:87)
         options = SQPOptions(expected_reduction_min=-100.0)
-    solver = make_sqp(plant, cost, cset, N, dt, method=method[3:],
-                      options=options, use_kernel_pcg=use_kernel_pcg)
+    if method == "iLQR":
+        solver = make_ilqr(plant, cost, cset, N, dt, options=options)
+    else:
+        solver = make_sqp(plant, cost, cset, N, dt, method=method[3:],
+                          options=options, use_kernel_pcg=use_kernel_pcg)
     return MPCController(solver=solver, sim_plant=sim_plant or plant,
                          shift=shift)

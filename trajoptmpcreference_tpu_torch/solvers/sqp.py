@@ -37,7 +37,7 @@ import torch
 
 from trajoptmpcreference_tpu_torch.models.plants import Plant
 from trajoptmpcreference_tpu_torch.solvers import constraints as C
-from trajoptmpcreference_tpu_torch.solvers.costs import Cost
+from trajoptmpcreference_tpu_torch.solvers.costs import Cost, total_cost_diff
 from trajoptmpcreference_tpu_torch.solvers.kkt import KKTSystem
 
 SQP_METHODS = ("N", "S", "PCG-J", "PCG-BJ", "PCG-SS")
@@ -165,30 +165,23 @@ class SQPSolver:
         return Js.sum(-1) + JN[..., 0], c_s.sum(-1) + c
 
     def _diff_metrics(self, X, U, Xc, Uc, xs, cost_params, cstate):
-        """(J(Xc,Uc) - J(X,U), violation(Xc,Uc)) in one knot sweep, from
-        per-stage differences (never two totals; the soft penalties too,
-        sqp.py:259-261, :278-280).  Xc / Uc may carry extra leading dims
-        (the ladder's rungs) that broadcast against X / U."""
+        """(J(Xc,Uc) - J(X,U), violation(Xc,Uc)) from per-stage
+        differences (costs.total_cost_diff: never two totals, the soft
+        penalties too, a difference of stage values for a cost without
+        stage_value_diff; sqp.py:246-285).  Xc / Uc may carry extra leading
+        dims (the ladder's rungs) that broadcast against X / U."""
         cs = self.cset
-        Xk, Uk = X.transpose(-1, -2), U.transpose(-1, -2)
+        dJ = total_cost_diff(self.cost, cs, cstate, self.N, X, U, Xc, Uc,
+                             cost_params)
         Xck, Uck = Xc.transpose(-1, -2), Uc.transpose(-1, -2)
-        Xs, XN = Xk[..., :-1, :], Xk[..., -1:, :]
         Xcs, XcN = Xck[..., :-1, :], Xck[..., -1:, :]
-        ks, kN = self._ks(X), self._kN(X)
-        ds = self.cost.stage_value_diff(cost_params, Xs, Uk, Xcs, Uck, ks)
-        dN = self.cost.term_value_diff(cost_params, XN, XcN, kN)
-        if cs.has_soft():
-            ds = ds + (C.stage_soft_value(cs, cstate, Xcs, Uck, ks)
-                       - C.stage_soft_value(cs, cstate, Xs, Uk, ks))
-            dN = dN + (C.term_soft_value(cs, cstate, XcN, kN)
-                       - C.term_soft_value(cs, cstate, XN, kN))
         xpred = self.plant.step(Xcs, Uck, self.dt)
         c_s = (Xck[..., 1:, :] - xpred).abs().sum(-1)
         c = (Xc[..., :, 0] - xs).abs().sum(-1)
         if cs.has_hard():
             c_s = c_s + C.stage_hard_values(cs, Xcs, Uck, False).abs().sum(-1)
             c = c + C.stage_hard_values(cs, XcN, None, True).abs().sum((-1, -2))
-        return ds.sum(-1) + dN[..., 0], c_s.sum(-1) + c
+        return dJ, c_s.sum(-1) + c
 
     def directional_derivative(self, Xc, Uc, dxu, cost_params, cstate):
         """D = sum_k grad_k . dxu_k (+ soft jacobians) at the candidate
