@@ -93,7 +93,32 @@ Phases (each prints its own numbers; any failure exits non-zero):
    launches by lane count and episode-weighted device time, bound and
    loss, the quality gate, every state finite, K1-K3 launched and K4 not;
    one more steady step profiled (device operations, device time, busy
-   share), as after phase 6.
+   share), as after phase 6;
+14. integrators 2-4 (midpoint, RK3, RK4): K1's and K2's launches in one
+   KKT assembly of the flagship at B = 512, counted by the lane recorder
+   (2 and 3, 3 and 5, 4 and 7), then each type's flagship cold solve in
+   f64 with the kernels on and off under phase 5's bar (equal exit codes
+   and iteration counts, the planted K1 fault above the bar);
+15. the RK4 closed loop (flagship.RK4_KNOBS), run like phase 6: wall
+   beside phase 6's, K1-K3's launches by lane count and episode-weighted
+   device time, bound and loss, the quality gate, every state finite,
+   K1-K3 launched and K4 not; one more steady step profiled;
+16. the dense KKT (method "N"): the flagship's cold solve by method "N"
+   against method "S" at B = 64 in f64 (equal exit codes and iteration
+   counts, max|dU|/max|U| under the larger of 1e-6 and 3x the gap a
+   one-ulp move of the plain outputs makes to method "S"), K1-K3 launched
+   and K4 not; one dense f32 solve of the flagship's first iterate at B =
+   512 (events time, peak device memory); two scenarios' matrices made
+   singular by a zeroed row: exactly they take the least-squares
+   fallback, and every other scenario's solution is bit for bit that of
+   the clean run;
+17. RTI: the flagship's second solve, warm-started from the cold step's
+   plan, in f64 at B = 512 with the kernels on and off under phase 5's
+   bar, for ls_fixed_alpha = 1, with rti_lean and with rti_step_clip = 5
+   (a K1 fault of 1e-6 planted above the bar: RTI's one-ulp gap is ~5e-5);
+   then one lean RTI solve and one
+   steady method-S solve, each at max_iter = 1, at B = 512 and 1 in f32:
+   events time and device operations.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -112,6 +137,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 B, N, STEPS, COLD_STEPS = 512, 64, 150, 1
+B_DENSE = 64                              # method N vs S: 1.9 GB of f64 KKT
 L_MAIN = B * (N - 1)                      # 32,256 lanes per knot sweep
 L_RAGGED = 1000                           # not a multiple of the block size
 L_LADDER = 3 * L_MAIN                     # the 3-rung ladder's K2 call
@@ -139,6 +165,12 @@ LANES_F64 = [L_RAGGED, L_MAIN]
 SOLVE_BAR = 1e-6
 SOLVE_FLOOR_X = 3
 FAULT_REL = 1e-8
+# RTI's warm second solve (phase 17) takes full QP steps at rho = 1e-3: a
+# one-ulp move of the plain outputs moves its U by ~5e-5 of max|U| in f64,
+# a floor that K1 moved by 1e-8 does not clear (CPU, N = 64, 32 scenarios:
+# 4.9e-5 against 3.2e-5), while the gap grows linearly from 1e-7 on (1e-6:
+# 3.3e-3).  There the planted fault is 1e-6, still 100x under K1's f32 bar.
+RTI_FAULT_REL = 1e-6
 # K4 vs its plain version, f32: max|d|/max|ref| after 20 fixed iterations,
 # and each scenario's max|x - x_cr|/max|x_cr| after running to convergence
 PCG_TOL, PCG_BS, PCG_FIXED_ITERS = 1e-4, 12, 20
@@ -432,6 +464,28 @@ def main():
         f"loop's {free_profile['wall']:.3f} s in this run "
         f"({ilqr_profile['wall'] / free_profile['wall']:.2f}x)")
 
+    # ---- 14. integrators 2-4: launches per KKT assembly, f64 on/off
+    for itype in (2, 3, 4):
+        assembly_launches(torch, F, lanes, K, knot_params, x0s, goals, itype)
+        solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev,
+                         knobs=dict(integrator_type=itype),
+                         tag=f"[integrators] type {itype}")
+
+    # ---- 15. the RK4 closed loop through K1-K3
+    _, rk4_profile = loop("[RK4 loop]", F.RK4_KNOBS)
+    one_step_profile(torch, F, x0s, goals, rk4_profile["res"], F.RK4_KNOBS,
+                     "[RK4 loop]")
+    log(f"[RK4 loop] wall {rk4_profile['wall']:.3f} s against the method-S "
+        f"loop's {free_profile['wall']:.3f} s in this run "
+        f"({rk4_profile['wall'] / free_profile['wall']:.2f}x)")
+
+    # ---- 16. the dense KKT (method "N")
+    dense_kkt(torch, F, lanes, K, FP, knot_params, events_ms, x0s_np, goals_np,
+              dev)
+
+    # ---- 17. RTI: f64 on/off from the cold step's plan; one step's cost
+    rti(torch, F, lanes, K, events_ms, x0s_np, goals_np, dev)
+
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"trajoptmpcreference_tpu_torch/kernels/csrc/{name}.cu",
@@ -615,33 +669,38 @@ def check_pcg(torch, BT, FP, dev):
 
 
 def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev, knobs=None,
-                     tag="[in-situ]"):
+                     tag="[in-situ]", start=None, fault_rel=FAULT_REL):
     """The flagship's cold solve (phase 5's; with ``knobs``, e.g. the
-    torque-limited or the iLQR flagship's) in f64 on the card with the
-    kernels on and off; off once more with the plain versions' outputs
+    torque-limited or the iLQR flagship's; with ``start`` = (X0, U0,
+    multipliers), f64 tensors on the card, a warm-started solve) in f64 on
+    the card with the kernels on and off; off once more with the plain versions' outputs
     moved by one ulp, the gap that a change of rounding alone makes; and
-    on twice more with K1's output moved by TOL_F64 and by FAULT_REL,
+    on twice more with K1's output moved by TOL_F64 and by ``fault_rel``,
     planted faults.  Asserts equal exit codes and outer iteration counts
     on vs off (iLQR: exit codes and iterations), max|dU|/max|U| under the
     bar (SOLVE_BAR or SOLVE_FLOOR_X times the one-ulp gap, whichever is
-    larger), and the FAULT_REL fault's gap above it."""
+    larger), and the ``fault_rel`` fault's gap above it."""
     f64 = torch.float64
     x0s = torch.as_tensor(x0s_np, dtype=f64, device=dev)
     goals = torch.as_tensor(goals_np, dtype=f64, device=dev)
     X0 = x0s[..., None].expand(B, 12, N).contiguous()
     U0 = torch.zeros((B, 6, N - 1), dtype=f64, device=dev)
+    warm = {}
+    if start is not None:
+        X0, U0, warm["guess"] = start
     plain = ((lanes.LaneDynamics, "fd"), (lanes.LaneDynamics, "fd_grad"),
              (K.LaneKinematics, "task_vec"))
     runs = {"on": (True, (), 0.0), "off": (False, (), 0.0),
             "ulp": (False, plain, 2.0 ** -52),
             "parity": (True, plain[1:2], TOL_F64),
-            "fault": (True, plain[1:2], FAULT_REL)}
+            "fault": (True, plain[1:2], fault_rel)}
     sols = {}
     for key, (on, targets, rel) in runs.items():
         _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, use_kernels=on,
                                      **(knobs or {}))
         with moved_outputs(torch, dev, targets, rel):
-            sols[key] = solver.solve(X0, U0, cost.default_params._replace(xg=goals))
+            sols[key] = solver.solve(X0, U0, cost.default_params._replace(xg=goals),
+                                     **warm)
     b = sols["off"]
     scale = b.U.abs().max()
 
@@ -669,11 +728,176 @@ def solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev, knobs=None,
         f"{getattr(b, exit_f).bincount().tolist()}); K1's output moved by "
         f"{TOL_F64:.0e} relative vs off: {parity[0]:.3e}, worst "
         f"{parity[1]:.3e}, median {parity[2]:.3e} (reported); by "
-        f"{FAULT_REL:.0e}: {fault[0]:.3e}, worst {fault[1]:.3e}, median "
+        f"{fault_rel:.0e}: {fault[0]:.3e}, worst {fault[1]:.3e}, median "
         f"{fault[2]:.3e} (must exceed the bar)")
     assert exits_eq and iters_eq
     assert rel < bar, (rel, bar)
     assert fault[0] > bar, (fault, bar)
+
+
+def assembly_launches(torch, F, lanes, K, knot_params, x0s, goals, itype):
+    """K1's and K2's launches in one KKT assembly (kkt.form_blocks) of the
+    flagship integrated by ``itype`` at B = 512, f32, by the lane
+    recorder: a Runge-Kutta step evaluates the dynamics at every stage
+    point, each xdot one K2 and each dxdot one K1 launch over B (N - 1)
+    lanes.  Asserts the counts the integrator implies."""
+    stages = {2: 2, 3: 3, 4: 4}[itype]
+    # step_gradient's dxdot at each stage and xdot at all but the last,
+    # and step's xdot at each stage
+    want = {"fd_grad": stages, "fd": 2 * stages - 1}
+    _, cost, solver = F.flagship(N=N, dtype=x0s.dtype, device=x0s.device,
+                                 integrator_type=itype)
+    X0 = x0s[..., None].expand(B, 12, N).contiguous()
+    U0 = torch.zeros((B, 6, N - 1), dtype=x0s.dtype, device=x0s.device)
+    p = knot_params(cost.default_params._replace(xg=goals))
+    by_lanes, restore = record_lane_counts(lanes, K)
+    try:
+        solver.kkt.form_blocks(X0, U0, x0s, p, ())
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    got = {name: sum(c for (lib, _), c in by_lanes.items() if lib == name)
+           for name in want}
+    lane_counts = sorted({L for (lib, L) in by_lanes if lib in want})
+    log(f"[integrators] type {itype}: one KKT assembly launches K1 "
+        f"{got['fd_grad']} and K2 {got['fd']} times (the integrator implies "
+        f"{want['fd_grad']} and {want['fd']}), at lane counts {lane_counts}")
+    assert got == want, (itype, got, want)
+    assert lane_counts == [L_MAIN], lane_counts
+
+
+def dense_kkt(torch, F, lanes, K, FP, knot_params, events_ms, x0s_np, goals_np,
+              dev):
+    """Phase 16.  Method "N" against method "S" on the flagship's cold
+    solve at B_DENSE scenarios in f64 (the KKT is (T + M)^2 = 1,920^2 a
+    scenario), with K1-K4's launches counted over those solves; then the
+    dense KKT of the flagship's first iterate at B = 512 in f32, solved
+    once (events time, peak memory), and again with two scenarios'
+    matrices singular (a zeroed row)."""
+    from trajoptmpcreference_tpu_torch.solvers.kkt import solve_kkt
+    f64, f32 = torch.float64, torch.float32
+    x0s = torch.as_tensor(x0s_np[:B_DENSE], dtype=f64, device=dev)
+    goals = torch.as_tensor(goals_np[:B_DENSE], dtype=f64, device=dev)
+    X0 = x0s[..., None].expand(B_DENSE, 12, N).contiguous()
+    U0 = torch.zeros((B_DENSE, 6, N - 1), dtype=f64, device=dev)
+    plain = ((lanes.LaneDynamics, "fd"), (lanes.LaneDynamics, "fd_grad"),
+             (K.LaneKinematics, "task_vec"))
+    kernels = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
+               FP.pcg_fused_kernel)
+    runs = {"N": ("N", True, ()), "S": ("S", True, ()),
+            "S off": ("S", False, ()), "S ulp": ("S", False, plain)}
+    sols, counts = {}, {}
+    for key, (method, on, targets) in runs.items():
+        _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, method=method,
+                                     use_kernels=on)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        with moved_outputs(torch, dev, targets, 2.0 ** -52):
+            sols[key] = solver.solve(X0, U0,
+                                     cost.default_params._replace(xg=goals))
+        torch.cuda.synchronize()
+        counts[key] = [k.launches for k in kernels]
+    scale = sols["S"].U.abs().max()
+    gap = lambda a, b: float((sols[a].U - sols[b].U).abs().max() / scale)
+    rel, floor = gap("N", "S"), gap("S ulp", "S off")
+    bar = max(SOLVE_BAR, SOLVE_FLOOR_X * floor)
+    exits_eq = torch.equal(sols["N"].exit_sqp, sols["S"].exit_sqp)
+    iters_eq = torch.equal(sols["N"].sqp_iters, sols["S"].sqp_iters)
+    log(f"[dense KKT] cold solve B={B_DENSE} N={N} f64, method N vs S (kernels "
+        f"on): max|dU|/max|U| = {rel:.3e}; S off vs S off with the plain "
+        f"outputs moved one ulp: {floor:.3e}; bar {bar:.3e} (max of "
+        f"{SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap); exit codes "
+        f"equal {exits_eq} (N {sols['N'].exit_sqp.bincount().tolist()}), "
+        f"iterations equal {iters_eq}; launches K1, K2, K3, K4 by method N "
+        f"{counts['N']}, by method S {counts['S']}")
+    assert exits_eq and iters_eq
+    assert rel < bar, (rel, bar)
+    assert all(c > 0 for c in counts["N"][:3]) and counts["N"][3] == 0, counts
+
+    # one dense f32 solve at full width, then two planted singular scenarios
+    x0s = torch.as_tensor(x0s_np, dtype=f32, device=dev)
+    goals = torch.as_tensor(goals_np, dtype=f32, device=dev)
+    X0 = x0s[..., None].expand(B, 12, N).contiguous()
+    U0 = torch.zeros((B, 6, N - 1), dtype=f32, device=dev)
+    _, cost, solver = F.flagship(N=N, dtype=f32, device=dev, method="N")
+    kkt = solver.kkt
+    blocks = kkt.form_blocks(X0, U0, x0s, knot_params(
+        cost.default_params._replace(xg=goals)), ())
+    rho = torch.full((B,), solver.options.rho_init, dtype=f32, device=dev)
+    A, b = kkt.dense_kkt(blocks, rho)
+    del blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_ms = events_ms(lambda: solve_kkt(A, b), reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    x, bad = solve_kkt(A, b)
+    log(f"[dense KKT] one f32 solve of the flagship's first-iterate KKT, B={B} "
+        f"x {A.shape[-1]}^2 ({A.numel() * A.element_size() / 1e9:.3f} GB): "
+        f"{t_ms:.3f} ms events (median of 5); peak device memory "
+        f"{peak / 1e9:.3f} GB, of it {(peak - base) / 1e9:.3f} GB over the "
+        f"matrix and its operands already held (max_memory_allocated); "
+        f"scenarios the LU could not solve {int(bad.sum())}, solution finite "
+        f"{bool(torch.isfinite(x).all())}")
+    assert not bool(bad.any()) and bool(torch.isfinite(x).all())
+    planted = torch.zeros(B, dtype=torch.bool, device=dev)
+    planted[[1, B - 2]] = True
+    row = kkt.N * kkt.n + 5 * kkt.bs + 2        # a defect row of knot 5
+    A[planted, row] = 0
+    x2, bad2 = solve_kkt(A, b)
+    same = bool((x2[~planted] == x[~planted]).all())
+    log(f"[dense KKT] row {row} zeroed in scenarios "
+        f"{planted.nonzero().flatten().tolist()}: the fallback took "
+        f"{bad2.nonzero().flatten().tolist()}; the other scenarios bit for "
+        f"bit as the clean solve {same}; the fallback's solutions finite "
+        f"{bool(torch.isfinite(x2[planted]).all())}")
+    assert torch.equal(bad2, planted)
+    assert same
+    assert bool(torch.isfinite(x2[planted]).all())
+
+
+def rti(torch, F, lanes, K, events_ms, x0s_np, goals_np, dev):
+    """Phase 17.  The cold step (flagship.COLD_KNOBS, f64, kernels on)
+    leaves a plan and multipliers; the flagship's second solve from them
+    by RTI (ls_fixed_alpha = 1; with rti_lean; with rti_step_clip = 5) is
+    held kernels on vs off under phase 5's bar, with the planted K1 fault
+    of RTI_FAULT_REL.  Then, in f32 from the same
+    kind of plan, one lean RTI solve and one steady method-S solve (the
+    3-rung ladder), each at max_iter = 1, at B = 512 and B = 1: events time
+    and device operations (a finding about the least a control step
+    launches)."""
+    def warm(dtype):
+        x0s = torch.as_tensor(x0s_np, dtype=dtype, device=dev)
+        goals = torch.as_tensor(goals_np, dtype=dtype, device=dev)
+        _, cost, cold = F.flagship_mpc(N=N, dtype=dtype, device=dev,
+                                       **F.COLD_KNOBS)
+        res = cold.run(x0s, 1, cost_params=cost.default_params._replace(xg=goals))
+        X = res.X_plan_last.clone()
+        X[..., 0] = res.X_applied[..., -1]
+        return X, res.U_plan_last, res.lam_last, goals
+
+    X, U, lam, _ = warm(torch.float64)
+    modes = {"fixed alpha 1": dict(ls_fixed_alpha=1.0),
+             "lean": dict(ls_fixed_alpha=1.0, rti_lean=True),
+             "clip 5": dict(ls_fixed_alpha=1.0, rti_step_clip=5.0)}
+    for name, knobs in modes.items():
+        solve_on_off_f64(torch, F, lanes, K, x0s_np, goals_np, dev, knobs=knobs,
+                         tag=f"[RTI] {name}", start=(X, U, lam),
+                         fault_rel=RTI_FAULT_REL)
+    X, U, lam, goals = warm(torch.float32)
+    for label, knobs in (("lean RTI", dict(ls_fixed_alpha=1.0, rti_lean=True)),
+                         ("method S, 3 rungs", {})):
+        _, cost, solver = F.flagship(N=N, dtype=torch.float32, device=dev,
+                                     max_iter=1, **knobs)
+        for Bn in (B, 1):
+            params = cost.default_params._replace(xg=goals[:Bn])
+            call = lambda: solver.solve(X[:Bn], U[:Bn], params, guess=lam[:Bn])
+            t_ms = events_ms(call)
+            ops, dev_ms, _ = device_ops(torch, call)
+            log(f"[RTI] one {label} solve at max_iter=1, B={Bn} f32: "
+                f"{t_ms:.3f} ms events (median of 20); {ops} device "
+                f"operations, {dev_ms:.3f} ms device time (torch.profiler)")
 
 
 def device_ops(torch, fn):
@@ -924,7 +1148,8 @@ def violation_profile(torch, res, tag, label):
 def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
                      tag, weighted):
     """The flagship closed loop (phase 6; with the torque-limited knobs,
-    phases 9 and 10; with the iLQR knobs, phase 13): one cold step (SQP:
+    phases 9 and 10; with the iLQR knobs, phase 13; with the RK4 knobs,
+    phase 15): one cold step (SQP:
     block-Thomas), then the steady steps (SQP: cyclic reduction),
     launches counted from 0 over the loop alone, K1-K3's by lane count;
     wall, quality, episode-weighted device time and the violation
@@ -952,6 +1177,7 @@ def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
                  f"(4 iterations, 9 rungs) + {STEPS - COLD_STEPS} steady")
     else:
         label = ((f"torque-limited flagship {json.dumps(knobs)}" if limited
+                  else f"unconstrained flagship {json.dumps(knobs)}" if knobs
                   else "unconstrained flagship")
                  + f", {COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
     gate_ok, finite = report_loop(torch, F, plant, x0s, goals, res, wall,

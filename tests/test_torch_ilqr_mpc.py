@@ -4,7 +4,7 @@ the JAX package (f64, CPU).
 * MPC "iLQR" on the pendulum (tests/test_mpc.py:29-34's setup: N = 20,
   dt = 0.1, 50 steps from rest) against JAX ``make_mpc(..., "iLQR")``:
   applied states and controls, solve costs to 1e-8, equal iteration counts
-  and exit codes; "QP-N" still raises.
+  and exit codes; "QP-N" builds a dense-KKT SQP controller.
 * The warm-rollout plan reset, per scenario: a batch in which one
   scenario's warm controls overflow the rollout restarts that scenario
   from zero controls, equal to JAX on the same inputs, while its
@@ -24,7 +24,6 @@ the JAX package (f64, CPU).
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from trajoptmpcreference_tpu import PendulumPlant as JaxPendulum
@@ -69,9 +68,10 @@ def test_mpc_ilqr_pendulum_matches_jax():
     assert res.lam_last.shape == (1, 0)
     # the swing-up holds at the top (tests/test_mpc.py:37-41)
     assert abs(float(res.X_applied[0, 0, -1]) - np.pi) < 1e-2
-    with pytest.raises(NotImplementedError, match="QP-N"):
-        make_mpc(PendulumPlant(), QuadraticCost(t(Q), t(QF), t(R), t(XG)),
-                 None, 20, 0.1, method="QP-N")
+    qp_n = make_mpc(PendulumPlant(), QuadraticCost(t(Q), t(QF), t(R), t(XG)),
+                    None, 20, 0.1, method="QP-N")
+    assert type(qp_n.solver).__name__ == "SQPSolver"
+    assert qp_n.solver.method == "N"
 
 
 def test_plan_reset_is_per_scenario():

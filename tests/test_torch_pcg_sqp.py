@@ -103,7 +103,7 @@ def test_qp_step_with_warm_start_and_trace_matches_jax():
     t = lambda a: torch.tensor(a)[None]
     blocks = solver.kkt.form_blocks(t(X), t(U), t(X[:, 0]),
                                     knot_params(solver.cost.default_params), ())
-    dxu, lam, stats = solver.solve_qp_from_blocks(blocks, t(rho), t(guess))
+    dxu, lam, stats, _ = solver.solve_qp_from_blocks(blocks, t(rho), t(guess))
     cold = solver.solve_qp_from_blocks(blocks, t(rho), torch.zeros_like(t(guess)))
     assert float((cold[1] - lam).abs().max()) > 1e-6     # the guess matters
     rel = lambda a, b: float(np.abs(a[0].numpy() - np.asarray(b)).max()
@@ -185,12 +185,13 @@ def test_make_mpc_pcg_matches_exact_schur(method, use_kernel_pcg):
 
 
 def test_unported_methods_raise():
+    """Every method once raised here but "iLQR"; now "N" and "QP-N" build
+    (the name is kept) and an invalid method still raises."""
     plant = URDFPlant(robot=serial_arm(2))
     cost = _arm2("S").cost
-    with pytest.raises(NotImplementedError, match="'N'"):
-        make_sqp(plant, cost, None, 10, 0.1, method="N")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_mpc(plant, cost, None, 10, 0.1, method="QP-N")
+    assert make_sqp(plant, cost, None, 10, 0.1, method="N").method == "N"
+    assert make_mpc(plant, cost, None, 10, 0.1,
+                    method="QP-N").solver.method == "N"
     # MPC "iLQR" is ported: it builds an iLQR controller
     assert type(make_mpc(plant, cost, None, 10, 0.1,
                          method="iLQR").solver).__name__ == "ILQRSolver"

@@ -237,11 +237,20 @@ def test_watchdog_resets_the_soft_state():
                                     dict(rti_lean=True),
                                     dict(rti_step_clip=1.0)])
 def test_only_the_rti_options_raise(option):
-    """ls_step_clip and hard_violation_exit_tol build a solver; the RTI
-    options (queue 1, item 20) still raise."""
+    """The RTI options once raised here (the name is kept).  Each RTI
+    option builds a solver (beside ls_step_clip and
+    hard_violation_exit_tol).  ls_fixed_alpha replaces the line search;
+    rti_lean and rti_step_clip without it are ignored, as in JAX
+    (sqp.py:402, :542): the solve equals the default one bit for bit."""
     plant, cost, _, _ = _arm2()
     make_sqp(plant, cost, None, 10, 0.1, method="S",
              options=SQPOptions(ls_step_clip=0.5, hard_violation_exit_tol=1e-3))
-    with pytest.raises(NotImplementedError, match="RTI"):
-        make_sqp(plant, cost, None, 10, 0.1, method="S",
-                 options=SQPOptions(**option))
+    zeros = (torch.zeros((1, 4, 10), dtype=f64),
+             torch.zeros((1, 2, 9), dtype=f64))
+    base = dict(expected_reduction_min=-100.0, max_iter=6)
+    ref = make_sqp(plant, cost, None, 10, 0.1, method="S",
+                   options=SQPOptions(**base)).solve(*zeros)
+    res = make_sqp(plant, cost, None, 10, 0.1, method="S",
+                   options=SQPOptions(**base, **option)).solve(*zeros)
+    same = torch.equal(res.U, ref.U) and torch.equal(res.J, ref.J)
+    assert same == ("ls_fixed_alpha" not in option)

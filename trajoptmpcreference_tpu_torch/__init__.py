@@ -4,22 +4,25 @@ trajoptmpcreference_tpu, slice by slice.
 It runs the flagship MPC closed loop: URDF robot models and the analytic
 plants (double integrator, pendulum, cart-pole), lanes rigid-body
 dynamics and kinematics with hand-written CUDA kernels (K1 fd_grad, K2 fd,
-K3 task residual) on the card, Euler / semi-implicit integrators, the
+K3 task residual) on the card, the five integrators (Euler, semi-implicit
+Euler, midpoint, RK3, RK4, with exact gradients), the
 quadratic, task-space (every Hessian mode), numerical and closed-form arm
 costs, box limits on joints, velocities and torques in every
 mode (hard ACTIVE_SET / FULL_SET rows, QUADRATIC_PENALTY and
-AUGMENTED_LAGRANGIAN soft limits), SQP methods "S" (the exact Schur solve
+AUGMENTED_LAGRANGIAN soft limits), SQP methods "N" (the dense KKT
+system), "S" (the exact Schur solve
 by cyclic reduction or block-Thomas, on the split, condensed or generic
 assembly) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur system by
 preconditioned CG, optionally through the fused PCG kernel K4), iLQR
-(sequential or log-depth Riccati pass, soft constraints) and the
-receding-horizon loop, with the torque-limited and iLQR flagship variants
-(``AS_KNOBS``, ``AL_KNOBS``, ``ILQR_KNOBS``).  Every function takes the scenario batch as
+(sequential or log-depth Riccati pass, soft constraints), the real-time
+iteration (``ls_fixed_alpha``, ``rti_lean``, ``rti_step_clip``) and the
+receding-horizon loop, with the torque-limited, iLQR and RK4 flagship
+variants (``AS_KNOBS``, ``AL_KNOBS``, ``ILQR_KNOBS``, ``RK4_KNOBS``).  Every function takes the scenario batch as
 an explicit leading dimension.  The package imports torch and numpy,
 never jax.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm
@@ -67,14 +70,20 @@ from trajoptmpcreference_tpu_torch.solvers.mpc import (
     make_mpc,
     run_scheduled,
 )
-from trajoptmpcreference_tpu_torch.flagship import AL_KNOBS, AS_KNOBS, ILQR_KNOBS
+from trajoptmpcreference_tpu_torch.flagship import (
+    AL_KNOBS,
+    AS_KNOBS,
+    ILQR_KNOBS,
+    RK4_KNOBS,
+)
 
 __all__ = [
     "RobotModel", "parse_urdf", "serial_arm", "Plant", "URDFPlant",
     "DoubleIntegratorPlant", "PendulumPlant", "CartPolePlant", "Cost",
     "QuadraticCostParams", "QuadraticCost", "UrdfCost", "NumericalCost",
     "ArmCost", "total_cost_diff", "ConstraintSet", "BoxLimitSpec",
-    "SoftLimitState", "AS_KNOBS", "AL_KNOBS", "ILQR_KNOBS", "ILQRResult",
+    "SoftLimitState", "AS_KNOBS", "AL_KNOBS", "ILQR_KNOBS", "RK4_KNOBS",
+    "ILQRResult",
     "ILQRSolver", "make_ilqr", "SQPOptions",
     "SQPResult", "SQPSolver", "make_sqp", "SQPSolverMethods",
     "MPCSolverMethods", "MPCController", "MPCResult", "make_mpc",

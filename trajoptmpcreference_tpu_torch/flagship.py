@@ -21,6 +21,12 @@ The iLQR variant (``__graft_entry__._flagship`` with method="iLQR",
 bench.py:81-90) keeps the plant, cost and options and solves each control
 step by iLQR (``ILQR_KNOBS``: 5 iterations a step; the cold step's 4
 iterations and 9-rung ladder as for SQP, its exact_schur unused).
+
+``RK4_KNOBS`` integrates the arm by RK4 instead of semi-implicit Euler
+(``integrator_type=4``): four dynamics evaluations a step, so each KKT
+assembly launches K1 four times and K2 seven times.  The RTI knobs
+(``ls_fixed_alpha``, ``rti_lean``, ``rti_step_clip``) replace the line
+search by a fixed step.
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ AL_KNOBS = dict(torque_limit=6.0, torque_mode="AUGMENTED_LAGRANGIAN",
                 max_iter=4, max_iter_soft=1)
 # the iLQR flagship, bench.py:81-90's default for BENCH_METHOD=iLQR
 ILQR_KNOBS = dict(method="iLQR", max_iter=5)
+# the flagship with the arm integrated by RK4 (__graft_entry__.py:23's
+# integrator_type)
+RK4_KNOBS = dict(integrator_type=4)
 DT = 0.015
 # the simulated arm's joint velocity limit: half a turn per control step
 SIM_QD_MAX = math.pi / DT
@@ -65,10 +74,14 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
              use_kernel_pcg=False, torque_limit=0.0,
              torque_mode="AUGMENTED_LAGRANGIAN", torque_band=0.2,
              max_iter_soft=None, ls_step_clip=math.inf,
-             parallel_riccati=False):
-    """(plant, cost, solver) with the defaults of __graft_entry__._flagship
-    (the knobs are those the cold phase, the PCG, torque-limited and iLQR
-    variants change).  torque_limit > 0 bounds every torque
+             parallel_riccati=False, integrator_type=1, vel_weight=0.1,
+             r_weight=0.01, qf_weight=100.0, dt=DT, parallel_ls=True,
+             ls_grad_at_base=True, ls_fixed_alpha=0.0, rti_lean=False,
+             rti_step_clip=math.inf, rho_init=1e-3, rho_min=1e-3):
+    """(plant, cost, solver) with the knobs and defaults of
+    __graft_entry__._flagship (:19-29); its rule that turns the fd and
+    task kernels off under the sequential line search (:76-81) works round
+    an XLA:TPU fault and is not ported.  torque_limit > 0 bounds every torque
     to +-torque_limit in ``torque_mode`` (a hard or soft mode, or
     "ACTIVE_SET+AL": hard rows with activation band ``torque_band`` and an
     AL limit stacked on the same bound, __graft_entry__.py:150-170);
@@ -83,15 +96,16 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
     use_pallas_pcg).  The tensors go to ``device``, the card unless the
     caller asks for another; without CUDA the default raises."""
     device = require_device(device)
-    plant = URDFPlant(robot=serial_arm(6), integrator_type=1,
+    plant = URDFPlant(robot=serial_arm(6), integrator_type=integrator_type,
                       use_kernel_fd_grad=use_kernels, use_kernel_fd=use_kernels,
                       use_kernel_task=use_kernels)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     # the arm is planar; goals live in the reachable x-y disc (z ignored = 0)
+    w = vel_weight
     cost = UrdfCost(plant,
-                    torch.diag(t([1.0, 1.0, 1.0, 0.1, 0.1, 0.1])),
-                    100.0 * torch.eye(6, dtype=dtype, device=device),
-                    0.01 * torch.eye(plant.nu, dtype=dtype, device=device),
+                    torch.diag(t([1.0, 1.0, 1.0, w, w, w])),
+                    qf_weight * torch.eye(6, dtype=dtype, device=device),
+                    r_weight * torch.eye(plant.nu, dtype=dtype, device=device),
                     t([3.0, 2.0, 0.0, 0.0, 0.0, 0.0]))
     opts = SQPOptions(
         expected_reduction_min=-100.0,   # per the reference's own example
@@ -100,12 +114,15 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
         max_iter=max_iter,
         max_iter_linSys=pcg_iters,
         pcg_relative=True,
-        parallel_line_search=True,
+        parallel_line_search=parallel_ls,
         alpha_factor=alpha_factor,
         alpha_min=alpha_min,
-        ls_grad_at_base=True,
-        rho_init=1e-3,
-        rho_min=1e-3,
+        ls_grad_at_base=ls_grad_at_base,
+        ls_fixed_alpha=ls_fixed_alpha,   # > 0: RTI, no line search
+        rti_lean=rti_lean,
+        rti_step_clip=rti_step_clip,
+        rho_init=rho_init,
+        rho_min=rho_min,
         ls_step_clip=ls_step_clip,
         **({} if max_iter_soft is None else dict(max_iter_soft=max_iter_soft)),
     )
@@ -129,10 +146,10 @@ def flagship(N=64, max_iter=3, dtype=torch.float32, device="cuda",
                 f"iLQR supports soft torque limits only; got torque_mode="
                 f"{torque_mode!r} (use AUGMENTED_LAGRANGIAN or "
                 "QUADRATIC_PENALTY, ref: README.md:17)")
-        solver = make_ilqr(plant, cost, cset, N, DT, options=opts,
+        solver = make_ilqr(plant, cost, cset, N, dt, options=opts,
                            parallel_riccati=parallel_riccati)
         return plant, cost, solver
-    solver = make_sqp(plant, cost, cset, N, DT, method=method, options=opts,
+    solver = make_sqp(plant, cost, cset, N, dt, method=method, options=opts,
                       exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return plant, cost, solver
 

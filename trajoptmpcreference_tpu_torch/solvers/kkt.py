@@ -17,8 +17,10 @@ Schur assemblies ``solve_schur`` dispatches between:
 
 The Schur system is solved exactly (block-Thomas or cyclic reduction) or
 by PCG: ``btridiag.pcg``, or with ``use_kernel_pcg`` the fused PCG of
-ops/fused_pcg.py (kernel K4 on CUDA tensors).  The dense KKT (method "N")
-is still to be ported (ROADMAP queue 1).
+ops/fused_pcg.py (kernel K4 on CUDA tensors).  Method "N" assembles and
+solves the dense KKT system instead (``solve_dense``): one (T + M)^2
+matrix per scenario, LU with partial pivoting, and the normal equations
+for the scenarios whose factorization meets a zero pivot.
 
 Every block carries the scenario batch as its leading axis: H (B, N, n, n),
 g (B, N, n), A (B, N-1, nx, nx), B (B, N-1, nx, nu), defect (B, N, nx),
@@ -211,6 +213,48 @@ class KKTSystem:
         if self.cset.has_soft() and not self.cset.soft_xu_separable():
             return None
         return self.nx
+
+    # ----------------------------------------------------------- dense KKT
+    def dense_kkt(self, blocks: KKTBlocks, rho):
+        """The full KKT matrix and right-hand side of each scenario
+        (kkt.py:241-276; ref: solveKKTSystem, TrajoptMPCReference.py:
+        313-359): [[G, C^T], [C, diag(D)]] and [g; rhs], with G
+        block-diagonal over the N knots and C's row group k holding F_k on
+        the diagonal and E_k one block to the left.  Returns (KKT (B, T+M,
+        T+M), b (B, T+M)), T = N n, M = N bs."""
+        N, n, bs = self.N, self.n, self.bs
+        T, M = N * n, N * bs
+        E, F, rhs, D = self._EF(blocks)
+        G = self._regularized_G(blocks, rho)
+        dev = G.device
+        k = torch.arange(N, device=dev)[:, None, None]
+        row_x = k * n + torch.arange(n, device=dev)[None, :, None]   # (N, n, 1)
+        col_x = k * n + torch.arange(n, device=dev)[None, None, :]   # (N, 1, n)
+        row_c = T + k * bs + torch.arange(bs, device=dev)[None, :, None]
+        KKT = G.new_zeros(G.shape[:-3] + (T + M, T + M))
+        KKT[..., row_x, col_x] = G
+        KKT[..., row_c, col_x] = F
+        KKT[..., col_x.transpose(-1, -2), row_c.transpose(-1, -2)] = \
+            F.transpose(-1, -2)
+        KKT[..., row_c[1:], col_x[:-1]] = E[..., 1:, :, :]
+        KKT[..., col_x[:-1].transpose(-1, -2), row_c[1:].transpose(-1, -2)] = \
+            E[..., 1:, :, :].transpose(-1, -2)
+        dj = torch.arange(T, T + M, device=dev)
+        KKT[..., dj, dj] = D.flatten(-2)
+        b = torch.cat([blocks.g.flatten(-2), rhs.flatten(-2)], dim=-1)
+        return KKT, b
+
+    def solve_dense(self, blocks: KKTBlocks, rho):
+        """Assemble and solve the dense KKT system of every scenario
+        (kkt.py:241-280).  Returns (dxu (B, N, n) with the terminal
+        phantom controls, lam (B, N, bs), bad (B,)): ``bad`` marks the
+        scenarios whose LU met a zero pivot or gave a non-finite solution,
+        which are solved by ``_lstsq`` instead (ref: :353-357)."""
+        N, n, bs = self.N, self.n, self.bs
+        KKT, b = self.dense_kkt(blocks, rho)
+        sol, bad = solve_kkt(KKT, b)
+        return sol[..., :N * n].unflatten(-1, (N, n)), \
+            sol[..., N * n:].unflatten(-1, (N, bs)), bad
 
     # ------------------------------------------------- generic Schur path
     def schur_blocks(self, blocks: KKTBlocks, rho):
@@ -427,6 +471,32 @@ def _fused_pcg_solver(N: int, bs: int, precond: str, tol: float,
     """Cached per-(shape, hyperparameter) fused-PCG closure (kkt.py:580-587)."""
     return make_batched_pcg(N, bs, precond=precond, tol=tol,
                             max_iter=max_iter, relative=relative)
+
+
+def solve_kkt(KKT, b):
+    """x = KKT^-1 b per scenario by LU with partial pivoting; returns (x,
+    bad).  A scenario is bad when the factorization reports a zero pivot
+    or its solution has a non-finite entry (JAX tests the latter only,
+    kkt.py:276; whether a zero pivot also yields inf differs between LAPACK
+    builds).  The bad scenarios alone are solved again by ``_lstsq``, so a
+    batch holds one LU's memory, never a second batch-wide system."""
+    x, info = torch.linalg.solve_ex(KKT, b)
+    bad = (info != 0) | ~torch.isfinite(x).all(-1)
+    if bool(bad.any()):
+        idx = bad.nonzero(as_tuple=True)
+        x = x.index_put(idx, _lstsq(KKT[idx], b[idx]))
+    return x, bad
+
+
+def _lstsq(A, b):
+    """Least squares by the normal equations with 1e-10 Tikhonov jitter
+    (kkt.py:590-594), the JAX package's jit-safe stand-in for the
+    reference's np.linalg.lstsq fallback (ref: :357).  A (..., m, m), b
+    (..., m)."""
+    At = A.transpose(-1, -2)
+    AtA = At @ A + 1e-10 * torch.eye(A.shape[-1], dtype=A.dtype,
+                                     device=A.device)
+    return torch.linalg.solve(AtA, _bmv(At, b))
 
 
 def _inv_psd(G, split_at: Optional[int] = None):

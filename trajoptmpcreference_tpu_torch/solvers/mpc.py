@@ -1,7 +1,7 @@
 """Receding-horizon MPC loop over a batch of scenarios.
 
-Port of trajoptmpcreference_tpu/solvers/mpc.py for the methods "iLQR",
-"QP-S" and "QP-PCG-J" / "QP-PCG-BJ" / "QP-PCG-SS": each control step
+Port of trajoptmpcreference_tpu/solvers/mpc.py for every method: "iLQR",
+"QP-N", "QP-S" and "QP-PCG-J" / "QP-PCG-BJ" / "QP-PCG-SS": each control step
 re-solves the horizon problem warm-started from the shifted previous plan
 (and, for the SQP methods, multipliers), applies the first control to the
 simulated plant and advances.  The JAX ``lax.scan`` over control steps becomes a
@@ -190,17 +190,13 @@ def make_mpc(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              sim_plant: Optional[Plant] = None,
              shift: int = 1, use_kernel_pcg: bool = False) -> MPCController:
     """Build a receding-horizon MPC controller (ref:
-    TrajoptMPCReference.py:21-27; mpc.py:229-260).  The port runs 'iLQR',
-    'QP-S' and 'QP-PCG-*' ('QP-N' is not ported); use_kernel_pcg goes to
-    make_sqp."""
+    TrajoptMPCReference.py:21-27; mpc.py:229-260): 'iLQR', or 'QP-' and
+    an SQP method; use_kernel_pcg goes to make_sqp."""
     from trajoptmpcreference_tpu_torch.solvers.methods import method_str
     method = method_str(method)
     if method not in MPC_METHODS:
         raise ValueError(f"Invalid MPC method {method!r}; options are "
                          f"{MPC_METHODS} (ref: TrajoptMPCReference.py:21-27)")
-    if method == "QP-N":
-        raise NotImplementedError(
-            f"MPC method {method!r} is not ported yet; see ROADMAP.md queue 1")
     if options is None:
         # the reference's own example disables the lower reduction-ratio
         # bound (ref: examples/twolinks.py:87)

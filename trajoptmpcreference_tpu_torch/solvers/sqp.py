@@ -1,16 +1,19 @@
 """SQP trajectory optimizer over a batch of scenarios.
 
 Port of trajoptmpcreference_tpu/solvers/sqp.py (ref:
-TrajoptMPCReference.py:510-760) for the Schur methods: "S" (exact Schur
-solve) and "PCG-J" / "PCG-BJ" / "PCG-SS" (the Schur system by PCG,
-warm-started from the previous multipliers; ``use_kernel_pcg`` routes it
-through the fused kernel K4).  It holds the soft-constraint outer loop, the
-SQP iteration, and the L1-merit line search (Nocedal & Wright 18.3), with
-the reference's exit codes, rho schedule and merit weight.  Box
-constraints enter through the soft penalties in the cost, merit and
-directional derivative, the hard rows in the violation and the KKT
-system, the AL outer loop's state updates, ``ls_step_clip`` (the
-constrained flagship's bound-jump guard) and ``hard_violation_exit_tol``.
+TrajoptMPCReference.py:510-760) for every method: "N" (the dense KKT
+system, kkt.solve_dense), "S" (exact Schur solve) and "PCG-J" / "PCG-BJ" /
+"PCG-SS" (the Schur system by PCG, warm-started from the previous
+multipliers; ``use_kernel_pcg`` routes it through the fused kernel K4).
+It holds the soft-constraint outer loop, the SQP iteration, and the
+L1-merit line search (Nocedal & Wright 18.3), with the reference's exit
+codes, rho schedule and merit weight, or with ``ls_fixed_alpha`` the real-
+time iteration (a fixed step, clipped per scenario by ``rti_step_clip``;
+``rti_lean`` skips every metric).  Box constraints enter through the soft
+penalties in the cost, merit and directional derivative, the hard rows in
+the violation and the KKT system, the AL outer loop's state updates,
+``ls_step_clip`` (the constrained flagship's bound-jump guard) and
+``hard_violation_exit_tol``.
 
 Every tensor carries the scenario batch as its leading axis: X (B, nx, N),
 U (B, nu, N-1), scalars (B,).  The JAX ``lax.while_loop``s with freeze gates
@@ -20,8 +23,7 @@ batch-invariance freeze, sqp.py:605-615, :673-675; the soft-constraint
 state included), and one host check per iteration ends the loop once every
 scenario is done.
 
-Still to be ported (raising NotImplementedError): method "N", the RTI
-options (``ls_fixed_alpha``, ``rti_*``) and horizon sharding.
+Horizon sharding (the JAX ``mesh`` / ``horizon_axis``) is not ported.
 ``trace_linsys`` carries the PCG dual trace in each iteration's QP stats;
 ``utils.trace`` that reads it is not ported.
 """
@@ -38,7 +40,7 @@ import torch
 from trajoptmpcreference_tpu_torch.models.plants import Plant
 from trajoptmpcreference_tpu_torch.solvers import constraints as C
 from trajoptmpcreference_tpu_torch.solvers.costs import Cost, total_cost_diff
-from trajoptmpcreference_tpu_torch.solvers.kkt import KKTSystem
+from trajoptmpcreference_tpu_torch.solvers.kkt import KKTSystem, SchurSolveStats
 
 SQP_METHODS = ("N", "S", "PCG-J", "PCG-BJ", "PCG-SS")
 
@@ -75,9 +77,9 @@ class SQPOptions:
     pcg_relative: bool = False
     parallel_line_search: bool = False      # one batched pass over the ladder
     ls_grad_at_base: bool = False           # Armijo D = g(X, U) . dxu
-    ls_fixed_alpha: float = 0.0             # RTI (not ported)
-    rti_lean: bool = False                  # RTI (not ported)
-    rti_step_clip: float = float("inf")     # RTI (not ported)
+    ls_fixed_alpha: float = 0.0             # > 0: RTI, a fixed step
+    rti_lean: bool = False                  # RTI without metrics
+    rti_step_clip: float = float("inf")     # RTI: max|alpha dU| per scenario
     ls_step_clip: float = float("inf")      # max|dU| per scenario; inf = off
     exit_tolerance_soft: float = 1e-6
     max_iter_soft: int = 10
@@ -117,6 +119,14 @@ def _where(mask, new, old):
     return torch.where(m, new, old)
 
 
+def _clip_factor(du_max, clip):
+    """min(1, clip / max|dU|) per scenario: the factor that scales a step
+    onto the trust region while keeping it on its ray."""
+    return torch.minimum(torch.ones_like(du_max),
+                         clip / torch.maximum(du_max,
+                                              torch.full_like(du_max, 1e-30)))
+
+
 def knot_params(cost_params):
     """Shape per-scenario goals (B, d) as (B, 1, d) so they broadcast over
     the knot axis of (B, K, ·) stage batches."""
@@ -142,11 +152,34 @@ class SQPSolver:
     def _kN(self, like):
         return torch.arange(self.N - 1, self.N, device=like.device)
 
-    # ------------------------------------------------------ fused metrics
-    def base_metrics(self, X, U, xs, cost_params, cstate):
-        """(total_cost, total_violation) (B,) in one knot sweep
-        (ref: TrajoptMPCReference.py:296-310 and :273-294): the cost with
-        its soft penalties, the violation with the active hard rows."""
+    # ------------------------------------------------------------- metrics
+    def total_cost(self, X, U, cost_params, cstate):
+        """(B,) cost with its soft penalties (sqp.py:176-186; ref:
+        TrajoptMPCReference.py:296-310); cost_params as ``solve`` takes
+        them."""
+        return self._total_cost(X, U, knot_params(cost_params), cstate)
+
+    def total_cost_diff(self, X, U, Xc, Uc, cost_params, cstate):
+        """(B,) J(Xc, Uc) - J(X, U) from per-stage differences, safe from
+        cancellation in f32 (sqp.py:188-195, costs.total_cost_diff)."""
+        return total_cost_diff(self.cost, self.cset, cstate, self.N, X, U,
+                               Xc, Uc, knot_params(cost_params))
+
+    def total_violation(self, X, U, xs):
+        """(B,) initial-state and dynamics defects plus the active hard
+        rows (sqp.py:197-210; ref: TrajoptMPCReference.py:273-294)."""
+        cs = self.cset
+        Xk, Uk = X.transpose(-1, -2), U.transpose(-1, -2)
+        Xs, XN = Xk[..., :-1, :], Xk[..., -1:, :]
+        xpred = self.plant.step(Xs, Uk, self.dt)
+        c_s = (Xk[..., 1:, :] - xpred).abs().sum(-1)
+        c = (X[..., :, 0] - xs).abs().sum(-1)
+        if cs.has_hard():
+            c_s = c_s + C.stage_hard_values(cs, Xs, Uk, False).abs().sum(-1)
+            c = c + C.stage_hard_values(cs, XN, None, True).abs().sum((-1, -2))
+        return c_s.sum(-1) + c
+
+    def _total_cost(self, X, U, cost_params, cstate):
         cs = self.cset
         Xk, Uk = X.transpose(-1, -2), U.transpose(-1, -2)
         Xs, XN = Xk[..., :-1, :], Xk[..., -1:, :]
@@ -156,13 +189,13 @@ class SQPSolver:
         if cs.has_soft():
             Js = Js + C.stage_soft_value(cs, cstate, Xs, Uk, ks)
             JN = JN + C.term_soft_value(cs, cstate, XN, kN)
-        xpred = self.plant.step(Xs, Uk, self.dt)
-        c_s = (Xk[..., 1:, :] - xpred).abs().sum(-1)
-        c = (X[..., :, 0] - xs).abs().sum(-1)
-        if cs.has_hard():
-            c_s = c_s + C.stage_hard_values(cs, Xs, Uk, False).abs().sum(-1)
-            c = c + C.stage_hard_values(cs, XN, None, True).abs().sum((-1, -2))
-        return Js.sum(-1) + JN[..., 0], c_s.sum(-1) + c
+        return Js.sum(-1) + JN[..., 0]
+
+    def base_metrics(self, X, U, xs, cost_params, cstate):
+        """(total_cost, total_violation) (B,) (sqp.py:220-244); cost_params
+        shaped by knot_params."""
+        return (self._total_cost(X, U, cost_params, cstate),
+                self.total_violation(X, U, xs))
 
     def _diff_metrics(self, X, U, Xc, Uc, xs, cost_params, cstate):
         """(J(Xc,Uc) - J(X,U), violation(Xc,Uc)) from per-stage
@@ -226,12 +259,16 @@ class SQPSolver:
 
     # ----------------------------------------------------------- line search
     def line_search(self, X, U, dxu, J, c, merit, xs, cost_params, cstate,
-                    mu, D_base=None) -> LineSearchResult:
-        """(ref: TrajoptMPCReference.py:606-744).  ``D_base``: with
-        options.ls_grad_at_base, the alpha-independent directional
-        derivative g(X, U) . dxu computed once by sqp_iterate."""
+                    mu=None, D_base=None) -> LineSearchResult:
+        """(ref: TrajoptMPCReference.py:606-744).  ``mu`` defaults to the
+        options' merit weight (10 when it is adaptive, sqp.py:358-359).
+        ``D_base``: with options.ls_grad_at_base, the alpha-independent
+        directional derivative g(X, U) . dxu computed once by
+        sqp_iterate."""
         o = self.options
         nx = self.plant.nx
+        if mu is None:
+            mu = torch.full_like(J, o.merit_mu if o.merit_mu > 0 else 10.0)
         dX = dxu[..., :nx].transpose(-1, -2)          # (B, nx, N)
         dU = dxu[..., :-1, nx:].transpose(-1, -2)     # (B, nu, N-1)
 
@@ -250,6 +287,9 @@ class SQPSolver:
                   & (ratio <= o.expected_reduction_max))
             return dJ, J + dJ, c_new, merit - delta_merit, D, ratio, ok
 
+        if o.ls_fixed_alpha > 0:
+            return self._rti_step(X, U, dX, dU, J, c, merit, xs, cost_params,
+                                  cstate, mu, D_base)
         if o.parallel_line_search:
             # the sequential loop tries alpha = 1, f, f^2, ... down to the
             # first value <= alpha_min (inclusive) — the exact same ladder,
@@ -293,19 +333,63 @@ class SQPSolver:
             c_new=s["c_new"], merit_new=s["merit_new"], D=s["D"],
             ratio=s["ratio"])
 
-    # ------------------------------------------------------------ QP solve
-    def solve_qp_from_blocks(self, blocks, rho, guess):
-        """The QP step from the KKT blocks (sqp.py:311-338): the method
-        picks exact Schur or PCG and its preconditioner; only PCG takes the
-        multiplier warm start ``guess``.  Returns (dxu, lam, stats)."""
+    def _rti_step(self, X, U, dX, dU, J, c, merit, xs, cost_params, cstate,
+                  mu, D_base):
+        """The real-time iteration (sqp.py:402-431): one unconditional step
+        of ls_fixed_alpha, per scenario scaled so max|alpha dU| <=
+        rti_step_clip (one factor for dX and dU); lean RTI carries J, c and
+        the merit unchanged, otherwise one _diff_metrics pass updates them
+        (D is D_base, or 0)."""
         o = self.options
+        alpha = torch.full_like(J, o.ls_fixed_alpha)
+        if math.isfinite(o.rti_step_clip):
+            alpha = alpha * _clip_factor(alpha * dU.abs().amax((-1, -2)),
+                                         o.rti_step_clip)
+        a = alpha[..., None, None]
+        Xc, Uc = X - a * dX, U - a * dU
+        zero, one = torch.zeros_like(J), torch.ones_like(J)
+        true = torch.ones(J.shape, dtype=torch.bool, device=J.device)
+        ls_iter = torch.zeros(J.shape, dtype=torch.long, device=J.device)
+        if o.rti_lean:
+            return LineSearchResult(
+                alpha=alpha, accepted=true, ls_iter=ls_iter, Xc=Xc, Uc=Uc,
+                dJ=zero, J_new=J, c_new=c, merit_new=merit, D=zero, ratio=one)
+        dJ, c_new = self._diff_metrics(X, U, Xc, Uc, xs, cost_params, cstate)
+        delta_merit = -dJ + mu * (c - c_new)
+        return LineSearchResult(
+            alpha=alpha, accepted=true, ls_iter=ls_iter, Xc=Xc, Uc=Uc, dJ=dJ,
+            J_new=J + dJ, c_new=c_new, merit_new=merit - delta_merit,
+            D=zero if D_base is None else D_base, ratio=one)
+
+    # ------------------------------------------------------------ QP solve
+    def solve_qp(self, X, U, xs, cost_params, cstate, rho, guess):
+        """The QP step at (X, U) (sqp.py:307-309); cost_params as ``solve``
+        takes them, rho (B,)."""
+        blocks = self.kkt.form_blocks(X, U, xs, knot_params(cost_params),
+                                      cstate)
+        return self.solve_qp_from_blocks(blocks, rho, guess)
+
+    def solve_qp_from_blocks(self, blocks, rho, guess):
+        """The QP step from the KKT blocks (sqp.py:311-338): method "N"
+        solves the dense KKT system, the others exact Schur or PCG and its
+        preconditioner; only PCG takes the multiplier warm start ``guess``.
+        Returns (dxu, lam, stats, singular (B,)); singular is set by method
+        "N" alone, for the scenarios its LU could not solve."""
+        o = self.options
+        if self.method == "N":
+            dxu, lam, singular = self.kkt.solve_dense(blocks, rho)
+            return dxu, lam, SchurSolveStats(
+                torch.zeros_like(singular, dtype=torch.long),
+                torch.ones_like(singular)), singular
         use_pcg = self.method.startswith("PCG")
-        return self.kkt.solve_schur(
+        dxu, lam, stats = self.kkt.solve_schur(
             blocks, rho, use_pcg=use_pcg, pcg_tol=o.exit_tolerance_linSys,
             pcg_max_iter=o.max_iter_linSys,
             precond=self.method[4:] if use_pcg else "SS",
             guess=guess if use_pcg else None, pcg_relative=o.pcg_relative,
             trace_residual=o.trace_linsys)
+        return dxu, lam, stats, torch.zeros(rho.shape, dtype=torch.bool,
+                                            device=rho.device)
 
     # --------------------------------------------------- one SQP iteration
     def sqp_iterate(self, X, U, J, c, merit, rho, drho, guess, mu, xs,
@@ -314,16 +398,12 @@ class SQPSolver:
         logic (ref: TrajoptMPCReference.py:571-750)."""
         o = self.options
         blocks = self.kkt.form_blocks(X, U, xs, cost_params, cstate)
-        dxu, lam, qp_stats = self.solve_qp_from_blocks(blocks, rho, guess)
+        dxu, lam, qp_stats, _ = self.solve_qp_from_blocks(blocks, rho, guess)
         if math.isfinite(o.ls_step_clip):
             # trust-region clip on the control part of the QP direction,
             # max|dU| per scenario; one factor keeps dxu on the ray
             du_max = dxu[..., :-1, self.plant.nx:].abs().amax((-1, -2))
-            scale = torch.minimum(
-                torch.ones_like(du_max),
-                o.ls_step_clip / torch.maximum(du_max,
-                                               torch.full_like(du_max, 1e-30)))
-            dxu = dxu * scale[..., None, None]
+            dxu = dxu * _clip_factor(du_max, o.ls_step_clip)[..., None, None]
         D_base = (blocks.g * dxu).sum((-1, -2)) if o.ls_grad_at_base else None
         ls = self.line_search(X, U, dxu, J, c, merit, xs, cost_params, cstate,
                               mu=mu, D_base=D_base)
@@ -346,7 +426,15 @@ class SQPSolver:
         zero = torch.zeros_like(ls.ls_iter)
         exit_code = torch.where(error & (rho1 > o.rho_max),
                                 zero + EXIT_RHO_MAX, zero)
-        tol_hit = ~error & (-ls.dJ < o.exit_tolerance)
+        if o.ls_fixed_alpha > 0 and o.rti_lean:
+            # lean RTI computes no metrics: the budget is the only exit
+            tol_hit = torch.zeros_like(error)
+        elif o.ls_fixed_alpha > 0:
+            # RTI accepts every step, so a cost increase is progress toward
+            # feasibility, not convergence: only a small |delta J| exits
+            tol_hit = ls.dJ.abs() < o.exit_tolerance
+        else:
+            tol_hit = ~error & (-ls.dJ < o.exit_tolerance)
         if self.cset.has_hard() and math.isfinite(o.hard_violation_exit_tol):
             hv = C.max_hard_violation(self.cset, X1, U1)
             tol_hit = tol_hit & (hv <= o.hard_violation_exit_tol)
@@ -362,8 +450,13 @@ class SQPSolver:
         """One inner SQP solve (ref: :571-750).
         Returns (X, U, exit_code, iters, J, c, lam)."""
         o = self.options
-        J0, c0 = self.base_metrics(X, U, xs, cost_params, cstate)
-        mu = self.merit_weight(J0, c0)
+        if o.ls_fixed_alpha > 0 and o.rti_lean:
+            # lean RTI never reads J, c or the merit (sqp.py:570-573)
+            J0 = c0 = X.new_zeros(X.shape[:-2])
+            mu = torch.full_like(J0, 10.0)
+        else:
+            J0, c0 = self.base_metrics(X, U, xs, cost_params, cstate)
+            mu = self.merit_weight(J0, c0)
         if guess0 is None:
             guess0 = X.new_zeros(X.shape[:-2] + (self.N, self.kkt.bs))
         batch = J0.shape
@@ -449,13 +542,6 @@ class SQPSolver:
                          cstate=s["cstate"], lam=s["lam"])
 
 
-def _check_options(o: SQPOptions) -> None:
-    if o.ls_fixed_alpha > 0 or o.rti_lean or math.isfinite(o.rti_step_clip):
-        raise NotImplementedError(
-            "SQPOptions RTI (ls_fixed_alpha / rti_lean / rti_step_clip) not "
-            "ported yet; see ROADMAP.md queue 1")
-
-
 def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              N: int, dt: float, method: str = "N",
              options: Optional[SQPOptions] = None,
@@ -463,7 +549,7 @@ def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              use_kernel_pcg: bool = False) -> SQPSolver:
     """Build an SQP solver (ref: TrajoptMPCReference.py:29-42,510;
     sqp.py:690-742).  ``method`` accepts a string or a SQPSolverMethods
-    member: "S", "PCG-J", "PCG-BJ" or "PCG-SS" ("N" is not ported).
+    member: "N", "S", "PCG-J", "PCG-BJ" or "PCG-SS".
     exact_schur: "thomas", "cr" or "cr_refine" (method "S").
     use_kernel_pcg: run the PCG methods' Schur solve as the fused PCG of
     ops/fused_pcg (kernel K4 on CUDA tensors)."""
@@ -473,10 +559,6 @@ def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
         raise ValueError(
             f"Invalid QP solver {method!r}; options are N (dense KKT), "
             "S (Schur), PCG-J / PCG-BJ / PCG-SS (ref: :590-596)")
-    if method == "N":
-        raise NotImplementedError(
-            "SQP method 'N' (dense KKT) is not ported yet; see ROADMAP.md "
-            "queue 1")
     if exact_schur not in ("thomas", "cr", "cr_refine"):
         raise ValueError(
             f"Invalid exact_schur {exact_schur!r}; options are 'thomas', "
@@ -484,7 +566,6 @@ def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
     if cset is None:
         cset = C.ConstraintSet(plant.nq, plant.nv, plant.nu, N)
     options = options or SQPOptions()
-    _check_options(options)
     kkt = KKTSystem(plant=plant, cost=cost, cset=cset, N=N, dt=dt,
                     exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
     return SQPSolver(plant=plant, cost=cost, cset=cset, N=N, dt=dt,
