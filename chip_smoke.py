@@ -118,7 +118,30 @@ Phases (each prints its own numbers; any failure exits non-zero):
    (a K1 fault of 1e-6 planted above the bar: RTI's one-ulp gap is ~5e-5);
    then one lean RTI solve and one
    steady method-S solve, each at max_iter = 1, at B = 512 and 1 in f32:
-   events time and device operations.
+   events time and device operations;
+18. the per-sample oracle (ops/rbd.py, ops/kinematics.Kinematics: other
+   formulations than the kernels' lane recursions) on the 32,256 states of
+   the flagship's first iterate (B = 512 x 63 knots): in f64, rbd.aba and
+   rbd.fd against K2 under 1e-10, rbd.fd_grad against K1 and K1's
+   [-Minv idsva, Minv] against rbd.fd_grad under 1e-9, CRBA times K1's
+   Minv against the identity under 1e-10, Kinematics.task_vec against K3
+   under 1e-12 (each relative to max|ref|), and a fault of 1e-6 planted in
+   K1's and K2's outputs above its bar; in f32 the same, reported; the
+   events time of rbd.fd, rbd.fd_grad and Kinematics.task_vec beside
+   K1-K3 and their lanes plain versions, and the device operations of one
+   rbd.fd_grad call;
+19. the per-sample flagship loop (``run_episode(use_lanes=False)``:
+   URDFPlant(use_lanes=False), the cost weights and SQPOptions of the
+   lanes flagship's own solvers), run like phase 6: wall beside phase
+   6's, the quality gate, every state finite, K1-K4 launched 0 times; one
+   more steady step profiled;
+20. the utilities (utils/): solve_traced on the flagship's cold solve at
+   B = 512 against solver.solve (f64: U within 1e-12 of max|U|, equal exit
+   codes, iters = sqp_iters + 1; f32 reported; live rows against iters),
+   cost_analysis of phase 6's profiled step (flops > 0, the device
+   operations of a plain profile made just before; phase 6's count and
+   the operations by name that moved since are printed), and time_fn of
+   one solve beside its events time.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -189,6 +212,14 @@ CR_F64_TOL = 1e-4
 # the torque-limited flagship's bound and the violation profile's
 # thresholds (analysis/constrained_flagship.md)
 TORQUE_LIMIT, AT_LIMIT_REL, STEADY_FROM = 6.0, 1e-3, 20
+# phase 18: K1-K3 against the per-sample formulations in f64, each bar
+# relative to max|ref| (the functions computed another way, not the same
+# recursions in another order), and the fault planted in K1's and K2's
+# outputs; phase 20: the traced and the untraced solve run the same
+# iteration body
+ORACLE_TOL = {"fd": 1e-10, "fd_grad": 1e-9, "crba": 1e-10, "task_vec": 1e-12}
+ORACLE_FAULT = 1e-6
+TRACE_TOL = 1e-12
 REPLACES = {"fd_grad": "trajoptmpcreference_tpu/ops/lanes.py:444",
             "fd": "trajoptmpcreference_tpu/ops/lanes.py:486",
             "task_vec": "trajoptmpcreference_tpu/ops/kinematics.py:283",
@@ -421,7 +452,9 @@ def main():
         lambda by: episode_weighted(kernels, inputs, by, lane_bound,
                                     device_ms, tag))
     counts, free_profile = loop("[main]", {})
-    one_step_profile(torch, F, x0s, goals, free_profile["res"], {}, "[main]")
+    main_step = one_step_profile(torch, F, x0s, goals, free_profile["res"], {},
+                                 "[main]")
+    main_step += (device_op_names(torch, main_step[0]),)
 
     # ---- 7. the PCG-SS closed loop through K4
     pcg_counts = pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched)
@@ -486,6 +519,20 @@ def main():
     # ---- 17. RTI: f64 on/off from the cold step's plan; one step's cost
     rti(torch, F, lanes, K, events_ms, x0s_np, goals_np, dev)
 
+    # ---- 18. K1-K3 against the per-sample oracle
+    per_sample_oracle(torch, lanes, K, events_ms, x0s_np, dev)
+
+    # ---- 19. the per-sample flagship loop, no kernel
+    _, sample_profile = loop("[per-sample loop]", dict(use_lanes=False))
+    one_step_profile(torch, F, x0s, goals, sample_profile["res"],
+                     dict(use_lanes=False), "[per-sample loop]")
+    log(f"[per-sample loop] wall {sample_profile['wall']:.3f} s against the "
+        f"method-S loop's {free_profile['wall']:.3f} s in this run "
+        f"({sample_profile['wall'] / free_profile['wall']:.2f}x)")
+
+    # ---- 20. the utilities
+    utilities(torch, F, events_ms, x0s_np, goals_np, dev, main_step)
+
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"trajoptmpcreference_tpu_torch/kernels/csrc/{name}.cu",
@@ -500,6 +547,161 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def per_sample_oracle(torch, lanes, K, events_ms, x0s_np, dev):
+    """Phase 18.  K1-K3 against the per-sample formulations (ops/rbd.py,
+    ops/kinematics.Kinematics) on the 32,256 states of the flagship's first
+    iterate: each scenario's x0 at its 63 knots, zero controls.  In f64
+    each comparison is held under its bar relative to max|ref|, and K1's
+    and K2's outputs moved by ORACLE_FAULT must read above theirs; in f32
+    the same numbers are reported.  Then the f32 events times of the
+    per-sample functions beside the kernels and their lanes plain
+    versions, and the device operations of one rbd.fd_grad call."""
+    from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
+    from trajoptmpcreference_tpu_torch.ops.rbd import make_rbd
+    robot = serial_arm(6)
+    rbd, kin = make_rbd(robot), K.Kinematics(robot)
+    dyn, lkin = lanes.LaneDynamics(robot), K.LaneKinematics(robot)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def moved(t, rel):
+        s = torch.randint(0, 2, t.shape, generator=gen, device=dev)
+        return t * (1 + (2 * s - 1).to(t.dtype) * rel)
+
+    for dtype in (torch.float64, torch.float32):
+        x0s = torch.as_tensor(x0s_np, dtype=dtype, device=dev)
+        X = x0s[:, None, :].expand(B, N - 1, 12).reshape(L_MAIN, 12)
+        q, qd = X[:, :6].contiguous(), X[:, 6:].contiguous()
+        u = torch.zeros_like(q)
+        lq, lqd, lu = (a.T.contiguous() for a in (q, qd, u))
+        k2 = lanes.fd_kernel(dyn.packed(lq), 6, lq, lqd, lu).T
+        k1 = lanes.fd_grad_kernel(dyn.packed(lq), 6, lq, lqd, lu).permute(2, 0, 1)
+        k3 = K.task_vec_kernel(lkin.packed(lq), 6, lq, lqd).T
+        minv = k1[..., 12:]
+        dq, dqd = rbd.idsva(q, qd, k2)
+        composed = torch.cat([-(minv @ torch.cat([dq, dqd], -1)), minv], -1)
+        fd_grad = rbd.fd_grad(q, qd, u)
+        eye = torch.eye(6, dtype=dtype, device=dev).expand(L_MAIN, 6, 6)
+        checks = [
+            ("rbd.aba vs K2", k2, rbd.aba(q, qd, u), ORACLE_TOL["fd"], "fd"),
+            ("rbd.fd vs K2", k2, rbd.fd(q, qd, u), ORACLE_TOL["fd"], "fd"),
+            ("rbd.fd_grad vs K1", k1, fd_grad, ORACLE_TOL["fd_grad"], "fd_grad"),
+            ("K1's [-Minv idsva, Minv] vs rbd.fd_grad", composed, fd_grad,
+             ORACLE_TOL["fd_grad"], None),
+            ("rbd.crba @ K1's Minv vs I", rbd.crba(q) @ minv, eye,
+             ORACLE_TOL["crba"], None),
+            ("Kinematics.task_vec vs K3", k3, kin.task_vec(q, qd),
+             ORACLE_TOL["task_vec"], None),
+        ]
+        torch.cuda.synchronize()
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, out, ref, bar, faulted in checks:
+            rel = rel_err(out, ref)
+            line = (f"[oracle] {name}, {tag}, L={L_MAIN}: max|d|/max|ref| = "
+                    f"{rel:.3e}")
+            fault = None
+            if faulted is not None:
+                fault = rel_err(moved(out, ORACLE_FAULT), ref)
+                line += (f"; the kernel's output moved by {ORACLE_FAULT:.0e}: "
+                         f"{fault:.3e}")
+            if dtype == torch.float64:
+                log(line + f" (bar {bar:.0e})")
+                assert bool(torch.isfinite(out).all()), name
+                assert rel < bar, (name, rel, bar)
+                assert fault is None or fault > bar, (name, fault, bar)
+            else:
+                log(line + " (reported)")
+        del checks, composed, fd_grad, dq, dqd
+
+    f32 = torch.float32
+    x0s = torch.as_tensor(x0s_np, dtype=f32, device=dev)
+    X = x0s[:, None, :].expand(B, N - 1, 12).reshape(L_MAIN, 12)
+    q, qd = X[:, :6].contiguous(), X[:, 6:].contiguous()
+    u = torch.zeros_like(q)
+    lq, lqd, lu = (a.T.contiguous() for a in (q, qd, u))
+    C = dyn.consts(lq)
+    rows = [
+        ("fd", lambda: rbd.fd(q, qd, u),
+         lambda: lanes.fd_kernel(dyn.packed(lq), 6, lq, lqd, lu),
+         lambda: lanes.fd_lanes(robot, lq, lqd, lu, consts=C)),
+        ("fd_grad", lambda: rbd.fd_grad(q, qd, u),
+         lambda: lanes.fd_grad_kernel(dyn.packed(lq), 6, lq, lqd, lu),
+         lambda: lanes.fd_grad_lanes(robot, lq, lqd, lu, consts=C)),
+        ("task_vec", lambda: kin.task_vec(q, qd),
+         lambda: K.task_vec_kernel(lkin.packed(lq), 6, lq, lqd),
+         lambda: lkin.task_vec_L(lq, lqd)),
+    ]
+    for name, sample, kern, plain in rows:
+        log(f"[oracle] {name} f32 L={L_MAIN}: per-sample "
+            f"{events_ms(sample):.4f} ms, kernel {events_ms(kern):.4f} ms, "
+            f"lanes plain version {events_ms(plain):.4f} ms (events, medians "
+            "of 20)")
+    ops, dev_ms, host_ms = device_ops(torch, lambda: rbd.fd_grad(q, qd, u))
+    log(f"[oracle] one rbd.fd_grad call, f32 L={L_MAIN}: {ops} device "
+        f"operations, {dev_ms:.3f} ms device time, {host_ms:.3f} ms host "
+        "(torch.profiler)")
+
+
+def utilities(torch, F, events_ms, x0s_np, goals_np, dev, main_step):
+    """Phase 20.  solve_traced against solver.solve on the flagship's cold
+    solve (phase 5's: B = 512 from bench.py's x0, zero controls): in f64 U
+    within TRACE_TOL of max|U|, equal exit codes and iters = sqp_iters + 1
+    per scenario; in f32 the same numbers, reported; in both the trace's
+    live rows are the first ``iters`` of each scenario.  Then
+    cost_analysis of phase 6's profiled step (``main_step`` = (the step,
+    the device operations phase 6 printed, and their names)): flops > 0
+    and the device operations of a plain-warm-up profile made just before
+    (the same step's count moves later in a run: the names that changed
+    since phase 6 are printed); and time_fn of one f32 solve beside its
+    events time."""
+    from trajoptmpcreference_tpu_torch.utils import (
+        cost_analysis,
+        solve_traced,
+        time_fn,
+    )
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        x0s = torch.as_tensor(x0s_np, dtype=dtype, device=dev)
+        goals = torch.as_tensor(goals_np, dtype=dtype, device=dev)
+        X0 = x0s[..., None].expand(B, 12, N).contiguous()
+        U0 = torch.zeros((B, 6, N - 1), dtype=dtype, device=dev)
+        _, cost, solver = F.flagship(N=N, dtype=dtype, device=dev)
+        params = cost.default_params._replace(xg=goals)
+        res = solver.solve(X0, U0, params)
+        _, U, tr = solve_traced(solver, X0, U0, params)
+        gap = rel_err(U, res.U)
+        exits = torch.equal(tr.exit_code, res.exit_sqp)
+        iters = torch.equal(tr.iters, res.sqp_iters + 1)
+        rows = torch.arange(tr.live.shape[-1], device=dev)
+        live = torch.equal(tr.live, rows < tr.iters[:, None])
+        log(f"[utils] solve_traced vs solver.solve, flagship cold solve "
+            f"B={B} {tag}: max|dU|/max|U| = {gap:.3e}, exit codes equal "
+            f"{exits}, iters = sqp_iters + 1 {iters}, live rows = the first "
+            f"iters {live}; trace fields {tuple(tr.J.shape)}, iterations "
+            f"{tr.iters.bincount().tolist()}")
+        assert live
+        if dtype == torch.float64:
+            assert gap < TRACE_TOL and exits and iters, (gap, exits, iters)
+    step, step_ops, names6 = main_step
+    names = device_op_names(torch, step)
+    stats = cost_analysis(step)
+    drift = {k: names[k] - names6[k] for k in set(names) | set(names6)
+             if names[k] != names6[k]}
+    log(f"[utils] cost_analysis of phase 6's profiled step: flops "
+        f"{stats['flops']:.4e} (matrix products), {stats['device_ops']} device "
+        f"operations, {stats['device_ms']:.2f} ms device, peak "
+        f"{stats['peak_bytes'] / 2**30:.3f} GiB; the profiler after a plain "
+        f"warm-up, just before: {sum(names.values())} (must be equal); phase "
+        f"6 printed {step_ops}; the count of each operation now minus at "
+        f"phase 6, where it moved: {json.dumps(drift)}")
+    assert stats["flops"] > 0, stats
+    assert stats["device_ops"] == sum(names.values()), (stats, names)
+    solve = lambda: solver.solve(X0, U0, params)
+    wall, _ = time_fn(solve, reps=5)
+    log(f"[utils] one flagship cold solve, B={B} f32: time_fn {1e3 * wall:.3f} "
+        f"ms (best of 5), events {events_ms(solve, reps=5):.3f} ms (median "
+        "of 5)")
 
 
 def record_lane_counts(lanes, K):
@@ -905,25 +1107,38 @@ def device_ops(torch, fn):
     warm-up call: the kernels, copies and sets it puts on the device and
     their summed device time, from torch.profiler's CUDA activity, and the
     host clock around the profiled call (the profiler's overhead
-    included)."""
+    included); utils.cost_analysis, whose first call (under the flop
+    counter) is the warm-up."""
+    from trajoptmpcreference_tpu_torch.utils import cost_analysis
+    stats = cost_analysis(fn)
+    return stats["device_ops"], stats["device_ms"], stats["host_ms"]
+
+
+def device_op_names(torch, fn):
+    """The device operations of one call of ``fn`` after a plain warm-up
+    call, counted by name (torch.profiler's CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        host = time.perf_counter() - t0
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(ev), 1e-3 * sum(e.device_time_total for e in ev), 1e3 * host
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def one_step_profile(torch, F, x0s, goals, res, knobs, tag):
     """Device operations, device time and busy share of one steady control
-    step continuing the episode ``res`` (its last state and warm carry)."""
+    step continuing the episode ``res`` (its last state and warm carry);
+    ``knobs`` as the episode's (``use_lanes=False``: the per-sample
+    controller).  Returns (the step, its device operations)."""
+    knobs = dict(knobs)
+    use_lanes = knobs.pop("use_lanes", True)
     _, cost, ctrl = F.flagship_mpc(N=N, dtype=x0s.dtype, device=x0s.device,
                                    **knobs)
+    if not use_lanes:
+        ctrl = F.per_sample(ctrl)
     params = cost.default_params._replace(xg=goals)
     step = lambda: ctrl.run(res.X_applied[..., -1], 1, X_init=res.X_plan_last,
                             U_init=res.U_plan_last, cost_params=params,
@@ -933,6 +1148,7 @@ def one_step_profile(torch, F, x0s, goals, res, knobs, tag):
     log(f"{tag} one steady step profiled (torch.profiler, B={B}): {ops} device "
         f"operations, device time {dev_ms:.2f} ms, host {host_ms:.2f} ms "
         f"under the profiler, busy share {dev_ms / host_ms:.3f}")
+    return step, ops
 
 
 def riccati_pair(torch, F, knot_params, events_ms, x0s_np, goals_np, dev):
@@ -1149,14 +1365,14 @@ def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
                      tag, weighted):
     """The flagship closed loop (phase 6; with the torque-limited knobs,
     phases 9 and 10; with the iLQR knobs, phase 13; with the RK4 knobs,
-    phase 15): one cold step (SQP:
-    block-Thomas), then the steady steps (SQP: cyclic reduction),
-    launches counted from 0 over the loop alone, K1-K3's by lane count;
-    wall, quality, episode-weighted device time and the violation
-    profile.  Asserts finite states and controls, the gate, K1-K3
-    launched, no K4 launch, and, with a torque limit, the limit binding (a
-    share at the limit above 0).  Returns (launch counts, profile with
-    the wall)."""
+    phase 15; with use_lanes=False, on the per-sample plant, phase 19):
+    one cold step (SQP: block-Thomas), then the steady steps (SQP: cyclic
+    reduction), launches counted from 0 over the loop alone, K1-K3's by
+    lane count; wall, quality, episode-weighted device time and the
+    violation profile.  Asserts finite states and controls, the gate,
+    K1-K3 launched (the per-sample loop: none of them), no K4 launch, and,
+    with a torque limit, the limit binding (a share at the limit above 0).
+    Returns (launch counts, profile with the wall)."""
     by_lanes, restore = record_lane_counts(lanes, K)
     torch.cuda.synchronize()
     for k in launched:
@@ -1171,8 +1387,12 @@ def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
               "fd": lanes.fd_kernel.launches,
               "task_vec": K.task_vec_kernel.launches}
     assert FP.pcg_fused_kernel.launches == 0    # methods S and iLQR run no PCG
+    use_lanes = knobs.get("use_lanes", True)
     limited = knobs.get("torque_limit", 0.0) > 0
-    if knobs.get("method") == "iLQR":
+    if not use_lanes:
+        label = (f"per-sample flagship (URDFPlant(use_lanes=False)), "
+                 f"{COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
+    elif knobs.get("method") == "iLQR":
         label = (f"iLQR flagship {json.dumps(knobs)}, {COLD_STEPS} cold "
                  f"(4 iterations, 9 rungs) + {STEPS - COLD_STEPS} steady")
     else:
@@ -1182,10 +1402,12 @@ def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
                  + f", {COLD_STEPS} cold thomas + {STEPS - COLD_STEPS} cr")
     gate_ok, finite = report_loop(torch, F, plant, x0s, goals, res, wall,
                                   counts, tag, label)
-    weighted(by_lanes)
+    if use_lanes:
+        weighted(by_lanes)
     profile = violation_profile(torch, res, tag, label)
     profile["wall"], profile["res"] = wall, res
-    assert all(v > 0 for v in counts.values()), counts
+    # the lanes loops launch K1-K3; the per-sample loop none of them
+    assert all((v > 0) == use_lanes for v in counts.values()), counts
     assert finite
     assert res.X_applied.shape == (B, 12, STEPS + 1)
     assert gate_ok

@@ -17,12 +17,17 @@ preconditioned CG, optionally through the fused PCG kernel K4), iLQR
 (sequential or log-depth Riccati pass, soft constraints), the real-time
 iteration (``ls_fixed_alpha``, ``rti_lean``, ``rti_step_clip``) and the
 receding-horizon loop, with the torque-limited, iLQR and RK4 flagship
-variants (``AS_KNOBS``, ``AL_KNOBS``, ``ILQR_KNOBS``, ``RK4_KNOBS``).  Every function takes the scenario batch as
-an explicit leading dimension.  The package imports torch and numpy,
+variants (``AS_KNOBS``, ``AL_KNOBS``, ``ILQR_KNOBS``, ``RK4_KNOBS``).  The
+per-sample rigid-body dynamics (RNEA and its gradient, Minv, CRBA, ABA,
+IDSVA), spatial algebra and kinematics (``ops/rbd.py``, ``ops/spatial.py``,
+``ops/kinematics.Kinematics``) run ``URDFPlant(use_lanes=False)`` and hold
+the kernels to another formulation; ``utils`` has the SQP trace, the
+operation count and the timer.  Every function takes the scenario batch
+as an explicit leading dimension.  The package imports torch and numpy,
 never jax.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm

@@ -22,6 +22,11 @@ bench.py:81-90) keeps the plant, cost and options and solves each control
 step by iLQR (``ILQR_KNOBS``: 5 iterations a step; the cold step's 4
 iterations and 9-rung ladder as for SQP, its exact_schur unused).
 
+``run_episode(..., use_lanes=False)`` runs the same loop on the arm's
+per-sample plant (``URDFPlant(use_lanes=False)``: ops/rbd.py and the
+per-sample kinematics, no kernel), with the cost weights, constraints and
+solver settings of the lanes flagship's own solvers.
+
 ``RK4_KNOBS`` integrates the arm by RK4 instead of semi-implicit Euler
 (``integrator_type=4``): four dynamics evaluations a step, so each KKT
 assembly launches K1 four times and K2 seven times.  The RTI knobs
@@ -31,6 +36,7 @@ search by a fixed step.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -180,14 +186,33 @@ def bench_scenarios(B: int, seed: int = 0):
     return x0s, goals
 
 
-def run_episode(x0s, goals, steps=150, cold_steps=1, **knobs):
+def per_sample(ctrl: MPCController) -> MPCController:
+    """The SQP controller ``ctrl`` on the per-sample plant of its arm
+    (``URDFPlant(robot, use_lanes=False)``, the same integrator): the same
+    cost weights, constraint set, horizon, method, SQPOptions and Schur
+    solve, read from ``ctrl``'s own solver so that the two cannot drift."""
+    s = ctrl.solver
+    plant = URDFPlant(robot=s.plant.robot, use_lanes=False,
+                      integrator_type=s.plant.integrator_type)
+    cost = UrdfCost(plant, *s.cost.default_params)
+    solver = make_sqp(plant, cost, s.cset, s.N, s.dt, method=s.method,
+                      options=s.options, exact_schur=s.kkt.exact_schur,
+                      use_kernel_pcg=s.kkt.use_kernel_pcg)
+    return dataclasses.replace(ctrl, solver=solver, sim_plant=plant)
+
+
+def run_episode(x0s, goals, steps=150, cold_steps=1, use_lanes=True, **knobs):
     """The bench's scheduled closed loop: ``cold_steps`` steps of the cold
     controller (COLD_KNOBS over ``knobs``), then the steady flagship
     controller.  x0s (B, 12) and goals (B, 6) are tensors on the target
-    device; knobs go to ``flagship_mpc``."""
+    device; knobs go to ``flagship_mpc``.  ``use_lanes=False`` runs both
+    controllers on the per-sample plant (``per_sample``; SQP methods)."""
     knobs = dict(knobs, dtype=x0s.dtype, device=x0s.device)
     plant, cost, ctrl = flagship_mpc(**knobs)
     _, _, ctrl_cold = flagship_mpc(**{**knobs, **COLD_KNOBS})
+    if not use_lanes:
+        ctrl, ctrl_cold = per_sample(ctrl), per_sample(ctrl_cold)
+        plant = ctrl.plant
     params = cost.default_params._replace(xg=goals)
     nc = min(cold_steps, steps)
     phases = [(ctrl_cold, nc)] + ([(ctrl, steps - nc)] if steps > nc else [])
@@ -197,9 +222,8 @@ def run_episode(x0s, goals, steps=150, cold_steps=1, **knobs):
 def ee_errors(plant, x0s, goals, res):
     """(final EE distance to goal, initial EE distance) per scenario, in the
     goal's x-y plane (bench.py:236-243), as float64 numpy arrays."""
-    kin, n = plant.kinematics, plant.nq
-    ee = kin.ee_pos_xyz(res.X_applied[:, :n, -1].T.contiguous())[:2].T
-    ee0 = kin.ee_pos_xyz(x0s[:, :n].T.contiguous())[:2].T
+    ee = plant.kinematics.ee_pos_x(res.X_applied[..., -1])
+    ee0 = plant.kinematics.ee_pos_x(x0s)
     err = torch.linalg.norm(ee - goals[:, :2], dim=1)
     dist0 = torch.linalg.norm(ee0 - goals[:, :2], dim=1)
     return (err.double().cpu().numpy(), dist0.double().cpu().numpy())

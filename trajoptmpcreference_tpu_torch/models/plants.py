@@ -6,24 +6,35 @@ TrajoptPlant.py:274-332) and the analytic plants ``DoubleIntegratorPlant``,
 hand (the JAX cart-pole's ``jax.jacfwd`` becomes the closed form).
 
 Every function takes x (..., nx) and u (..., nu) with any leading batch
-dimensions.  The URDF plant flattens them onto the lane axis of the
-dynamics (ops/lanes.LaneDynamics), so one call over a whole (scenario x
-knot) batch is one kernel launch on the card; the analytic plants are
-plain PyTorch.
+dimensions.  The URDF plant with lanes (the default) flattens them onto
+the lane axis of the dynamics (ops/lanes.LaneDynamics), so one call over
+a whole (scenario x knot) batch is one kernel launch on the card; without
+lanes it runs the per-sample dynamics and kinematics (ops/rbd.py,
+ops/kinematics.Kinematics), plain PyTorch that reaches no kernel.  The
+analytic plants are plain PyTorch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf
 from trajoptmpcreference_tpu_torch.ops.integrators import make_integrator
-from trajoptmpcreference_tpu_torch.ops.kinematics import LaneKinematics
-from trajoptmpcreference_tpu_torch.ops.lanes import LaneDynamics
+from trajoptmpcreference_tpu_torch.ops.kinematics import (
+    Kinematics,
+    LaneKinematics,
+    make_kinematics,
+)
+from trajoptmpcreference_tpu_torch.ops.lanes import (
+    LaneDynamics,
+    from_lanes,
+    to_lanes,
+)
+from trajoptmpcreference_tpu_torch.ops.rbd import RBD, make_rbd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,68 +53,92 @@ class Plant:
     dxdot: Callable
     step: Callable
     step_gradient: Callable
+    rbd: Optional[RBD] = None
     dynamics: Optional[LaneDynamics] = None
-    kinematics: Optional[LaneKinematics] = None
+    kinematics: Optional[Union[Kinematics, LaneKinematics]] = None
     robot: Optional[RobotModel] = None
 
     @property
     def nx(self) -> int:
         return self.nq + self.nv
 
+    def get_num_pos(self):
+        return self.nq
 
-def to_lanes(x, k0: int, k1: int):
-    """Columns k0:k1 of x (..., d) as a contiguous (k1-k0, L) lanes tensor."""
-    return x.reshape(-1, x.shape[-1])[:, k0:k1].T.contiguous()
+    def get_num_vel(self):
+        return self.nv
 
-
-def from_lanes(y, lead):
-    """(d, L) or (d0, d1, L) lanes tensor -> (*lead, d) or (*lead, d0, d1)."""
-    return y.movedim(-1, 0).reshape(*lead, *y.shape[:-1])
+    def get_num_cntrl(self):
+        return self.nu
 
 
 def URDFPlant(path: Optional[str] = None,
               robot: Optional[RobotModel] = None,
               integrator_type: int = 0,
               gravity: float = -9.81,
+              options: Optional[dict] = None,
+              use_lanes: bool = True,
               use_kernel_fd_grad: bool = True,
               use_kernel_fd: bool = True,
               use_kernel_task: bool = True) -> Plant:
-    """URDF rigid-body plant: qdd = Minv(q) (u - c(q, qd)).
+    """URDF rigid-body plant: qdd = Minv(q) (u - c(q, qd))
+    (ref: TrajoptPlant.py:274-332).  ``options`` may give
+    ``path_to_urdf`` and ``gravity``, which take precedence.
 
-    The kernel flags are the counterparts of the JAX plant's use_pallas /
-    use_pallas_fd / use_pallas_task: on CUDA tensors they select K1 / K2 /
-    K3 (on) or the plain PyTorch versions (off).  CPU tensors always take
-    the plain versions."""
+    use_lanes: fd / fd_grad / task_vec over the lanes dynamics and
+    kinematics, where the kernel flags (the JAX plant's use_pallas /
+    use_pallas_fd / use_pallas_task) select K1 / K2 / K3 on CUDA tensors
+    (on) or the plain PyTorch versions (off); CPU tensors always take the
+    plain versions.  Without lanes the plant runs the per-sample
+    ``rbd.fd`` / ``rbd.fd_grad`` and ``Kinematics`` on every device and
+    the kernel flags are not read, as in the JAX package.  Either plant
+    carries ``rbd``."""
+    if options:
+        path = options.get("path_to_urdf", path)
+        gravity = options.get("gravity", gravity)
     if robot is None:
         if path is None:
             raise ValueError("URDFPlant needs a path or a RobotModel")
         robot = parse_urdf(path)
     n = robot.n
-    dyn = LaneDynamics(robot, gravity, use_kernel_fd=use_kernel_fd,
-                       use_kernel_fd_grad=use_kernel_fd_grad)
-    kin = LaneKinematics(robot, use_kernel_task=use_kernel_task)
+    rbd = make_rbd(robot)
+    dyn = None
+    kin = make_kinematics(robot, use_lanes=use_lanes,
+                          use_kernel_task=use_kernel_task)
+    if use_lanes:
+        dyn = LaneDynamics(robot, gravity, use_kernel_fd=use_kernel_fd,
+                           use_kernel_fd_grad=use_kernel_fd_grad)
 
-    def _qqdu(x, u):
-        return to_lanes(x, 0, n), to_lanes(x, n, 2 * n), to_lanes(u, 0, n)
+        def _qqdu(x, u):
+            return to_lanes(x, 0, n), to_lanes(x, n, 2 * n), to_lanes(u, 0, n)
+
+        def qdd(x, u):
+            return from_lanes(dyn.fd(*_qqdu(x, u)), x.shape[:-1])
+
+        def dqdd(x, u):
+            return from_lanes(dyn.fd_grad(*_qqdu(x, u)), x.shape[:-1])
+    else:
+        def qdd(x, u):
+            return rbd.fd(x[..., :n], x[..., n:], u, gravity)
+
+        def dqdd(x, u):
+            return rbd.fd_grad(x[..., :n], x[..., n:], u, gravity)
 
     def xdot(x, u):
-        q, qd, uu = _qqdu(x, u)
-        qdd = from_lanes(dyn.fd(q, qd, uu), x.shape[:-1])
-        return torch.cat([x[..., n:], qdd], dim=-1)
+        return torch.cat([x[..., n:], qdd(x, u)], dim=-1)
 
     def dxdot(x, u):
-        q, qd, uu = _qqdu(x, u)
-        dqdd = from_lanes(dyn.fd_grad(q, qd, uu), x.shape[:-1])  # (..., n, 3n)
+        d = dqdd(x, u)                                          # (..., n, 3n)
         top = x.new_zeros(x.shape[:-1] + (n, 3 * n))
         top[..., :, n:2 * n] = torch.eye(n, dtype=x.dtype, device=x.device)
-        return torch.cat([top, dqdd], dim=-2)                   # (..., 2n, 3n)
+        return torch.cat([top, d], dim=-2)                      # (..., 2n, 3n)
 
     step, step_gradient = make_integrator(xdot, dxdot, 2 * n, n,
                                           integrator_type)
     return Plant(name=robot.name, nq=n, nv=n, nu=n,
                  integrator_type=integrator_type, xdot=xdot, dxdot=dxdot,
-                 step=step, step_gradient=step_gradient, dynamics=dyn,
-                 kinematics=kin, robot=robot)
+                 step=step, step_gradient=step_gradient, rbd=rbd,
+                 dynamics=dyn, kinematics=kin, robot=robot)
 
 
 # ------------------------------------------------------- analytic plants

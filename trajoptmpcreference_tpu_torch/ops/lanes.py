@@ -151,6 +151,16 @@ _OFF = dict(S=0, I6=6, XF=42, AX=78, A2=87, DAMP=96, JTYPE=97, PARENT=98,
             EF=99, TF=108, AXIS=111, EFAX=114, CHAIN=117)
 
 
+def to_lanes(x, k0: int, k1: int):
+    """Columns k0:k1 of x (..., d) as a contiguous (k1-k0, L) lanes tensor."""
+    return x.reshape(-1, x.shape[-1])[:, k0:k1].T.contiguous()
+
+
+def from_lanes(y, lead):
+    """(d, L) or (d0, d1, L) lanes tensor -> (*lead, d) or (*lead, d0, d1)."""
+    return y.movedim(-1, 0).reshape(*lead, *y.shape[:-1])
+
+
 def kinematic_chain(robot: RobotModel, leaf: int = 0) -> List[int]:
     """Joint ids from the base to the end-effector leaf, in chain order
     (ops/kinematics.py make_kinematics)."""

@@ -27,7 +27,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from trajoptmpcreference_tpu_torch.models.plants import Plant, from_lanes, to_lanes
+from trajoptmpcreference_tpu_torch.models.plants import Plant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,16 +157,21 @@ def UrdfCost(plant: Plant, Q, QF, R, xg, QF_start: Optional[int] = None,
     hess_mode (ref: TrajoptCost.py:391-395,482-519):
       0: Gauss-Newton (Q J_tot)^T J_tot   [reference default]
       1: exact — torch.func.jacfwd of the analytic gradient.  An oracle for
-         validation, as in the JAX package: it differentiates the PLAIN
-         kinematics (``LaneKinematics.task_vec_L`` and
-         ``jacobian_tot_state``, plain PyTorch on every device), never
-         kernel K3, one sample at a time under torch.func.vmap
+         validation, as in the JAX package: it differentiates the plain
+         per-sample kinematics (``plant.kinematics.plain``, plain PyTorch
+         on every device), never kernel K3, one sample at a time under
+         torch.func.vmap
       2: grad^T grad outer product
       3: zero state Hessian
 
     ref_compat (2-link only): reproduce the reference's hand-coded dJdq
     shortcut (ref: RBDReference.py:256-266) *including its sign error* on
-    the d J[1,0]/dq row — for golden-parity tests only."""
+    the d J[1,0]/dq row — for golden-parity tests only.
+
+    The cost reads the plant's kinematics through the state-level methods
+    that the per-sample ``Kinematics`` and ``LaneKinematics`` share
+    (``task_vec_x``, ``jacobian_tot_state_x``, ``jacobian_x``), so it runs
+    unchanged on a plant with lanes or without."""
     if plant.kinematics is None:
         raise ValueError("UrdfCost requires a URDF plant with kinematics")
     if hess_mode not in (0, 1, 2, 3):
@@ -180,17 +185,15 @@ def UrdfCost(plant: Plant, Q, QF, R, xg, QF_start: Optional[int] = None,
     params0 = QuadraticCostParams(Q, QF, R, xg)
 
     def delta_x(p, x):
-        # one frames pass: kernel K3 on CUDA tensors (ops/kinematics)
-        tv = kin.task_vec(to_lanes(x, 0, n), to_lanes(x, n, 2 * n))
-        return from_lanes(tv, x.shape[:-1]) - p.xg
+        # one frames pass: kernel K3 on CUDA tensors for a lanes plant
+        return kin.task_vec_x(x) - p.xg
 
     def _jt(x):
-        q, qd = to_lanes(x, 0, n), to_lanes(x, n, 2 * n)
         if not ref_compat:
-            return from_lanes(kin.jacobian_tot_state(q, qd), x.shape[:-1])
+            return kin.jacobian_tot_state_x(x)
         # reference 2-link shortcut, incl. its dJ[1,0]/dq sign
         # (ref: RBDReference.py:256-266, 318-336)
-        J = from_lanes(kin.jacobian(q), x.shape[:-1])       # (..., 2, 2)
+        J = kin.jacobian_x(x)                               # (..., 2, 2)
         D = torch.stack([
             -J[..., 1, :],
             torch.stack([-J[..., 1, 1], -J[..., 1, 1]], dim=-1),
@@ -206,10 +209,9 @@ def UrdfCost(plant: Plant, Q, QF, R, xg, QF_start: Optional[int] = None,
         return ((delta_x(p, x)[..., None, :] @ cQ) @ Jt)[..., 0, :]
 
     def _grad_plain(x, Q_, xg_):
-        # one sample (2n,): the plain kinematics on a single lane
-        q, qd = x[:n, None], x[n:, None]
-        Jt = kin.jacobian_tot_state(q, qd)[..., 0]           # (2k, 2n)
-        d = kin.task_vec_L(q, qd)[:, 0] - xg_
+        # one sample (2n,) through the plain per-sample kinematics
+        Jt = kin.plain.jacobian_tot_state(x[:n], x[n:])      # (2k, 2n)
+        d = kin.plain.task_vec(x[:n], x[n:]) - xg_
         return (d @ Q_) @ Jt
 
     def _hess_x(p, x, cQ, Jt, gx):

@@ -24,8 +24,8 @@ state included), and one host check per iteration ends the loop once every
 scenario is done.
 
 Horizon sharding (the JAX ``mesh`` / ``horizon_axis``) is not ported.
-``trace_linsys`` carries the PCG dual trace in each iteration's QP stats;
-``utils.trace`` that reads it is not ported.
+``trace_linsys`` carries the PCG dual trace in each iteration's QP stats,
+which ``utils.trace.solve_traced`` records.
 """
 
 from __future__ import annotations
