@@ -141,7 +141,29 @@ Phases (each prints its own numbers; any failure exits non-zero):
    cost_analysis of phase 6's profiled step (flops > 0, the device
    operations of a plain profile made just before; phase 6's count and
    the operations by name that moved since are printed), and time_fn of
-   one solve beside its events time.
+   one solve beside its events time;
+21. the parallel layer (parallel/) on a one-rank NCCL group (file://
+   store in a temporary directory) and a DeviceMesh("cuda", (1, 1),
+   ("batch", "horizon")), at the flagship's full width (B = 512, N = 64,
+   K1-K3 on): shard_solve of the f32 cold solve over 'batch', bit-equal
+   to solver.solve; the horizon-sharded method "S" (SPIKE) and PCG-SS
+   cold solves against the unsharded solver in f64 (equal exit codes and
+   iteration counts, max|dU| under the larger of the multichip dry run's
+   1e-6 and 3x the gap a one-ulp move of K1-K3's outputs makes, a planted
+   K1 fault of FAULT_REL above it; method "S" at one SQP iteration under
+   1e-6 itself); in f32 the same solves reported beside their one-ulp
+   floor, and, on the flagship's first Schur system, the sharded exact
+   solve's relative residual under 10x cyclic reduction's (PCG-SS's
+   beside btridiag.pcg's, reported); events ms per solve sharded beside
+   unsharded, K1-K3 launches and the collectives per sharded solve (a
+   one-rank group makes no P2P call);
+22. the native C++ dynamics (native/, built with g++ into build/native/)
+   as an oracle: K2 and K1 in f64 on 256 of the flagship's first-iterate
+   states against native fd / fd_grad state by state under 1e-10
+   relative, a 1e-6 fault planted in K1's output above that bar; K3's
+   end-effector rows against native ee_pos under 1e-12, and its J qd rows
+   against native's central-difference Jacobian under 1e-7 of max|J|
+   max|qd|.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -220,6 +242,17 @@ TORQUE_LIMIT, AT_LIMIT_REL, STEADY_FROM = 6.0, 1e-3, 20
 ORACLE_TOL = {"fd": 1e-10, "fd_grad": 1e-9, "crba": 1e-10, "task_vec": 1e-12}
 ORACLE_FAULT = 1e-6
 TRACE_TOL = 1e-12
+# phase 21: the multichip dry run's bar for the sharded f64 solves
+# (__graft_entry__.py:333), raised to SOLVE_FLOOR_X x the one-ulp gap
+# where rounding alone moves U more; f32 Schur systems are held by
+# residual, under RESIDUAL_X x the unsharded solve's (:304)
+SHARDED_BAR, RESIDUAL_X = 1e-6, 10
+# phase 22: K1-K3 against the native library, relative to each state's
+# max|ref|; native's Jacobian is a central difference (h = 1e-7,
+# native/dynamics.hpp ee_jacobian), good to ~1e-9, so J qd takes 1e-7
+# of max|J| max|qd|
+NATIVE_STATES = 256
+NATIVE_TOL = {"fd": 1e-10, "fd_grad": 1e-10, "ee_pos": 1e-12, "Jqd": 1e-7}
 REPLACES = {"fd_grad": "trajoptmpcreference_tpu/ops/lanes.py:444",
             "fd": "trajoptmpcreference_tpu/ops/lanes.py:486",
             "task_vec": "trajoptmpcreference_tpu/ops/kinematics.py:283",
@@ -273,12 +306,16 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
+    from trajoptmpcreference_tpu_torch.native import codegen
     with ThreadPoolExecutor(2) as pool:
         counting = pool.submit(opcount.build_all)
+        native_so = pool.submit(codegen.build, serial_arm(6))
         built = _build.build_all()
         counting.result()
-    log(f"[build] {time.perf_counter() - t0:.1f} s wall (nvcc and the g++ "
-        "operation counters together); per library "
+        native_so = native_so.result()
+    log(f"[build] {time.perf_counter() - t0:.1f} s wall (nvcc, the g++ "
+        f"operation counters and the native library {native_so.name} "
+        "together); per library "
         + json.dumps({k: round(v, 1) for k, v in built.items()})
         + f"; dir {_build.build_dir()}")
     for name in ("fd", "fd_grad", "task_vec"):
@@ -533,6 +570,13 @@ def main():
     # ---- 20. the utilities
     utilities(torch, F, events_ms, x0s_np, goals_np, dev, main_step)
 
+    # ---- 21. the parallel layer on a one-rank NCCL group
+    parallel_layer(torch, F, lanes, K, BT, knot_params, events_ms, x0s_np,
+                   goals_np, dev)
+
+    # ---- 22. K1-K3 against the native C++ dynamics
+    native_oracle(torch, lanes, K, x0s_np, dev)
+
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"trajoptmpcreference_tpu_torch/kernels/csrc/{name}.cu",
@@ -641,6 +685,264 @@ def per_sample_oracle(torch, lanes, K, events_ms, x0s_np, dev):
     log(f"[oracle] one rbd.fd_grad call, f32 L={L_MAIN}: {ops} device "
         f"operations, {dev_ms:.3f} ms device time, {host_ms:.3f} ms host "
         "(torch.profiler)")
+
+
+def parallel_layer(torch, F, lanes, K, BT, knot_params, events_ms, x0s_np,
+                   goals_np, dev):
+    """Phase 21.  The parallel layer at the flagship's full width on a
+    one-rank process group (NCCL on the card) with a (1, 1) mesh of dims
+    ('batch', 'horizon'): the multi-rank arithmetic is the gloo tests'
+    (tests/test_torch_parallel_*.py, P = 4 and 8 on the CPU); this
+    phase runs the same code through NCCL and K1-K3.
+
+    (a) shard_solve of the f32 cold solve (phase 5's) over 'batch' is
+    bit-equal to solver.solve, field by field: one rank does the same
+    work.  (b) The horizon-sharded solvers (the generic Schur layout,
+    the SPIKE solve for method "S", sharded PCG for PCG-SS) against the
+    unsharded ones: in f64, equal exit codes and iteration counts and
+    max|dU| under the larger of SHARDED_BAR and SOLVE_FLOOR_X times the
+    gap a one-ulp move of K1-K3's outputs makes to the unsharded solve
+    (the cold solve's own rounding floor, ~1e-6 at three iterations), with
+    a FAULT_REL fault planted in K1's output above that bar, and method
+    "S" at one SQP iteration under SHARDED_BAR itself; in f32 the same
+    numbers reported (the f32 floor is O(1) on this cold start); and on
+    the flagship's first Schur system in f32 the sharded exact solve's
+    relative residual (median and whole batch) under RESIDUAL_X times
+    cyclic reduction's, and the sharded PCG-SS solve's beside
+    btridiag.pcg's, reported (40 f32 iterations on this system are set by
+    rounding, as phase 8 finds for K4).  Each sharded solve's
+    K1-K3 launches and collectives are counted from 0; a one-rank group
+    makes no P2P call."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from trajoptmpcreference_tpu_torch.parallel import make_mesh, shard_solve
+    from trajoptmpcreference_tpu_torch.parallel.multihost import CALLS
+    from trajoptmpcreference_tpu_torch.solvers.sqp import make_sqp
+    kernels = {"fd_grad": lanes.fd_grad_kernel, "fd": lanes.fd_kernel,
+               "task_vec": K.task_vec_kernel}
+    plain = ((lanes.LaneDynamics, "fd"), (lanes.LaneDynamics, "fd_grad"),
+             (K.LaneKinematics, "task_vec"))
+    f32, f64 = torch.float32, torch.float64
+
+    def setup(dtype, knobs, mesh):
+        x0s = torch.as_tensor(x0s_np, dtype=dtype, device=dev)
+        goals = torch.as_tensor(goals_np, dtype=dtype, device=dev)
+        X0 = x0s[..., None].expand(B, 12, N).contiguous()
+        U0 = torch.zeros((B, 6, N - 1), dtype=dtype, device=dev)
+        plant, cost, solver = F.flagship(N=N, dtype=dtype, device=dev, **knobs)
+        sharded = make_sqp(plant, cost, None, N, solver.dt,
+                           method=solver.method, options=solver.options,
+                           mesh=mesh)
+        params = cost.default_params._replace(xg=goals)
+        return (X0, U0, params), x0s, solver, sharded
+
+    def counted(fn):
+        """fn() with K1-K3's launches and the collectives counted from 0."""
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        CALLS.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: k.launches for n, k in kernels.items()}, dict(CALLS)
+
+    def fields(res):
+        return {k: v for k, v in res._asdict().items() if torch.is_tensor(v)}
+
+    gap = lambda a, b: float((a.U - b.U).abs().max())
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group("nccl", init_method=f"file://{td}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1, 1), ("batch", "horizon"))
+            log(f"[parallel] process group: backend "
+                f"{dist.get_backend()}, world size {dist.get_world_size()}; "
+                f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+                f"{mesh.device_type}")
+
+            # (a) the scenario split over 'batch'
+            args, _, solver, _ = setup(f32, {}, mesh)
+            ref = solver.solve(*args)
+            shard = shard_solve(solver, mesh, "batch")
+            res, launches, calls = counted(lambda: shard(*args))
+            same = {k: torch.equal(v, fields(ref)[k])
+                    for k, v in fields(res).items()}
+            t_un = events_ms(lambda: solver.solve(*args), reps=5)
+            t_sh = events_ms(lambda: shard(*args), reps=5)
+            log(f"[parallel] shard_solve over 'batch', flagship cold solve "
+                f"B={B} N={N} f32: bit-equal to solver.solve field by field "
+                f"{json.dumps(same)}; events {t_sh:.3f} ms sharded, "
+                f"{t_un:.3f} ms unsharded (median of 5); K1-K3 launches "
+                f"{json.dumps(launches)}; collectives {json.dumps(calls)}")
+            assert all(same.values()), same
+            assert all(v > 0 for v in launches.values()), launches
+
+            # (b) the horizon-sharded solves, f64: the bar and its floor
+            for method, knobs in (("S", {}), ("PCG-SS", F.PCG_KNOBS)):
+                args, _, solver, sharded = setup(f64, knobs, mesh)
+                ref = solver.solve(*args)
+                with moved_outputs(torch, dev, plain, 2.0 ** -52):
+                    ulp = solver.solve(*args)
+                res, launches, calls = counted(lambda: sharded.solve(*args))
+                with moved_outputs(torch, dev, plain[1:2], FAULT_REL):
+                    fault = sharded.solve(*args)
+                floor, d, d_fault = gap(ulp, ref), gap(res, ref), gap(fault, ref)
+                bar = max(SHARDED_BAR, SOLVE_FLOOR_X * floor)
+                exits = torch.equal(res.exit_sqp, ref.exit_sqp)
+                iters = torch.equal(res.sqp_iters, ref.sqp_iters)
+                log(f"[parallel] horizon-sharded {method} vs unsharded, "
+                    f"flagship cold solve B={B} N={N} f64: max|dU| = "
+                    f"{d:.3e}; unsharded with K1-K3's outputs moved one ulp "
+                    f"{floor:.3e}; bar {bar:.3e} (max of {SHARDED_BAR:.0e} "
+                    f"and {SOLVE_FLOOR_X} x the one-ulp gap); K1 moved by "
+                    f"{FAULT_REL:.0e} in the sharded solve {d_fault:.3e} "
+                    f"(must exceed the bar); exit codes equal {exits} "
+                    f"({res.exit_sqp.bincount().tolist()}), sqp_iters equal "
+                    f"{iters}; K1-K3 launches {json.dumps(launches)}; "
+                    f"collectives {json.dumps(calls)}; max|U| "
+                    f"{float(ref.U.abs().max()):.4f}")
+                assert exits and iters
+                assert d < bar and d_fault > bar, (method, d, d_fault, bar)
+                assert all(v > 0 for v in launches.values()), launches
+                assert calls.get("p2p", 0) == 0, calls
+            args, _, solver, sharded = setup(f64, dict(max_iter=1), mesh)
+            ref, res = solver.solve(*args), sharded.solve(*args)
+            d = gap(res, ref)
+            log(f"[parallel] horizon-sharded S vs unsharded at one SQP "
+                f"iteration, f64: max|dU| = {d:.3e} (bar {SHARDED_BAR:.0e}), "
+                f"exit codes equal {torch.equal(res.exit_sqp, ref.exit_sqp)}")
+            assert d < SHARDED_BAR and torch.equal(res.exit_sqp, ref.exit_sqp)
+
+            # f32: the solves reported; the Schur systems held by residual
+            for method, knobs in (("S", {}), ("PCG-SS", F.PCG_KNOBS)):
+                args, x0s, solver, sharded = setup(f32, knobs, mesh)
+                ref = solver.solve(*args)
+                with moved_outputs(torch, dev, plain, 2.0 ** -23):
+                    ulp = solver.solve(*args)
+                res, launches, calls = counted(lambda: sharded.solve(*args))
+                t_un = events_ms(lambda: solver.solve(*args), reps=5)
+                t_sh = events_ms(lambda: sharded.solve(*args), reps=5)
+                same = int((res.exit_sqp == ref.exit_sqp).sum())
+                log(f"[parallel] horizon-sharded {method} vs unsharded, "
+                    f"flagship cold solve B={B} N={N} f32: max|dU| = "
+                    f"{gap(res, ref):.3e}, the one-ulp floor {gap(ulp, ref):.3e} "
+                    f"(reported); equal exit codes in {same}/{B} scenarios; "
+                    f"events {t_sh:.3f} ms sharded, {t_un:.3f} ms unsharded "
+                    f"(median of 5); per sharded solve K1-K3 launches "
+                    f"{json.dumps(launches)}, collectives {json.dumps(calls)} "
+                    f"(a one-rank group makes no P2P call: the halo exchange "
+                    f"returns its zero boundary rows without one)")
+                assert bool(torch.isfinite(res.U).all())
+                assert all(v > 0 for v in launches.values()), launches
+                assert calls.get("p2p", 0) == 0, calls
+
+                kkt, o = solver.kkt, solver.options
+                X0, U0, params = args
+                blocks = kkt.form_blocks(X0, U0, x0s, knot_params(params), ())
+                rho = torch.full((B,), o.rho_init, dtype=f32, device=dev)
+                S, gam, _, _ = kkt._schur_blocks_split(blocks, rho)
+                pcg = method != "S"
+                kw = dict(pcg_tol=o.exit_tolerance_linSys,
+                          pcg_max_iter=o.max_iter_linSys, precond="SS",
+                          pcg_relative=o.pcg_relative)
+                _, lam, _ = kkt.solve_schur_sharded(blocks, rho, mesh,
+                                                    "horizon", exact=not pcg,
+                                                    **kw)
+                if pcg:
+                    lam_ref = BT.pcg(S, gam, BT.preconditioner(S, "SS"),
+                                     exit_tolerance=kw["pcg_tol"],
+                                     max_iter=kw["pcg_max_iter"],
+                                     relative=kw["pcg_relative"]).x
+                    name = "btridiag.pcg"
+                else:
+                    lam_ref, name = BT.btd_cyclic_reduction(S, gam), \
+                        "cyclic reduction"
+                S64 = BT.BlockTridiag(S.diag.double(), S.upper.double())
+                g64 = gam.double().flatten(1)
+
+                def residual(x):
+                    r = BT.btd_matvec(S64, x.double()).flatten(1) - g64
+                    return (float((r.norm(dim=1) / g64.norm(dim=1)).median()),
+                            float(r.norm() / g64.norm()))
+
+                r_sh, r_un = residual(lam), residual(lam_ref)
+                log(f"[parallel] the flagship's first Schur system, f32: "
+                    f"|S lam - gam|/|gam| of the sharded {method} solve median "
+                    f"{r_sh[0]:.3e}, whole batch {r_sh[1]:.3e}; of {name} "
+                    f"median {r_un[0]:.3e}, whole batch {r_un[1]:.3e} "
+                    + (f"(bar {RESIDUAL_X} x, floored at 1e-6)" if not pcg
+                       else "(reported: 40 f32 iterations on this system "
+                       "are set by rounding)"))
+                assert all(math.isfinite(v) for v in r_sh), r_sh
+                for i in range(2 if not pcg else 0):
+                    assert r_sh[i] < RESIDUAL_X * max(r_un[i], 1e-6), (
+                        method, r_sh, r_un)
+        finally:
+            dist.destroy_process_group()
+
+
+def native_oracle(torch, lanes, K, x0s_np, dev):
+    """Phase 22.  K1-K3 in f64 on the flagship's first-iterate states of
+    its first NATIVE_STATES scenarios (x0, zero controls) against the
+    native C++ library (native/, NativeDynamics: the GRiD-style codegen's
+    host code, another implementation in another language), state by
+    state, each relative to that state's max|ref|: K2 against native fd
+    and K1 against native fd_grad under 1e-10, a 1e-6 fault planted in
+    K1's output above that bar; K3's end-effector rows against native
+    ee_pos under 1e-12 and its J qd rows against native's
+    central-difference Jacobian times qd under 1e-7 of max|J| max|qd| (the
+    size of the terms J qd sums)."""
+    from trajoptmpcreference_tpu_torch.models.urdf import serial_arm
+    from trajoptmpcreference_tpu_torch.native import NativeDynamics
+    robot = serial_arm(6)
+    native = NativeDynamics(robot)
+    dyn, lkin = lanes.LaneDynamics(robot), K.LaneKinematics(robot)
+    x = np.asarray(x0s_np[:NATIVE_STATES], dtype=np.float64)
+    q, qd, u = x[:, :6], x[:, 6:], np.zeros((len(x), 6))
+    lq, lqd, lu = (torch.as_tensor(a.T.copy(), dtype=torch.float64, device=dev)
+                   for a in (q, qd, u))
+    k2 = lanes.fd_kernel(dyn.packed(lq), 6, lq, lqd, lu).T.cpu().numpy()
+    k1 = lanes.fd_grad_kernel(dyn.packed(lq), 6, lq, lqd, lu)
+    k3 = K.task_vec_kernel(lkin.packed(lq), 6, lq, lqd).T.cpu().numpy()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    s = torch.randint(0, 2, k1.shape, generator=gen, device=dev)
+    k1_fault = (k1 * (1 + (2 * s - 1).double() * ORACLE_FAULT)).permute(
+        2, 0, 1).cpu().numpy()
+    k1 = k1.permute(2, 0, 1).cpu().numpy()
+    rows = range(len(x))
+    ref = {"fd": np.stack([native.fd(q[i], qd[i], u[i]) for i in rows]),
+           "fd_grad": np.stack([native.fd_grad(q[i], qd[i], u[i]) for i in rows]),
+           "ee_pos": np.stack([native.ee_pos(q[i]) for i in rows]),
+           "Jqd": np.stack([native.ee_jacobian(q[i]) @ qd[i] for i in rows])}
+    # J qd sums terms of size max|J| max|qd|, which can cancel: its scale
+    J_scale = np.array([np.abs(native.ee_jacobian(q[i])).max()
+                        * np.abs(qd[i]).max() for i in rows])
+
+    def per_state(out, r, scale=None):
+        d = np.abs(out - r).reshape(len(r), -1).max(1)
+        if scale is None:
+            scale = np.abs(r).reshape(len(r), -1).max(1)
+        return float((d / scale).max())
+
+    outs = {"fd": k2, "fd_grad": k1, "ee_pos": k3[:, :3], "Jqd": k3[:, 3:]}
+    names = {"fd": "K2 vs native fd", "fd_grad": "K1 vs native fd_grad",
+             "ee_pos": "K3's end-effector rows vs native ee_pos",
+             "Jqd": "K3's J qd rows vs native's central-difference J, times qd"}
+    for key, out in outs.items():
+        rel = per_state(out, ref[key], J_scale if key == "Jqd" else None)
+        scale = "max|J| max|qd|" if key == "Jqd" else "max|ref|"
+        line = (f"[native] {names[key]}, f64, {len(x)} states: worst state "
+                f"max|d|/{scale} = {rel:.3e} (bar {NATIVE_TOL[key]:.0e})")
+        if key == "fd_grad":
+            fault = per_state(k1_fault, ref[key])
+            line += (f"; K1's output moved by {ORACLE_FAULT:.0e}: {fault:.3e} "
+                     "(must exceed the bar)")
+            assert fault > NATIVE_TOL[key], fault
+        log(line)
+        assert np.isfinite(out).all(), key
+        assert rel < NATIVE_TOL[key], (key, rel)
 
 
 def utilities(torch, F, events_ms, x0s_np, goals_np, dev, main_step):

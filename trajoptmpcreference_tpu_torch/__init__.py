@@ -22,12 +22,15 @@ per-sample rigid-body dynamics (RNEA and its gradient, Minv, CRBA, ABA,
 IDSVA), spatial algebra and kinematics (``ops/rbd.py``, ``ops/spatial.py``,
 ``ops/kinematics.Kinematics``) run ``URDFPlant(use_lanes=False)`` and hold
 the kernels to another formulation; ``utils`` has the SQP trace, the
-operation count and the timer.  Every function takes the scenario batch
-as an explicit leading dimension.  The package imports torch and numpy,
-never jax.
+operation count and the timer.  ``parallel`` splits scenario batches and
+shards the Schur solve over the horizon across processes
+(``torch.distributed``: NCCL on cards, gloo on CPUs), and ``native`` is
+the robot-specialized C++ dynamics (g++, ctypes).  Every function takes
+the scenario batch as an explicit leading dimension.  The package
+imports torch and numpy, never jax.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm

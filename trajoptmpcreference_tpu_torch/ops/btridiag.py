@@ -154,10 +154,12 @@ def btd_cyclic_reduction(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
     return x[..., :N, :]
 
 
-def btd_block_thomas(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
-    """Direct block-Thomas (block LU) solve, sequential over N
-    (btridiag.py:383-430): C_k = Dt_k^-1 U_k, d_k = Dt_k^-1 (b_k - L_k d_{k-1})
-    with Dt_k = D_k - L_k C_{k-1}; then x_k = d_k - C_k x_{k+1}."""
+def btd_block_thomas_multi(A: BlockTridiag, B: torch.Tensor) -> torch.Tensor:
+    """Block-Thomas with a stacked right-hand side B (..., N, bs, m): one
+    block LU shared by the m columns (btridiag.py:383-423; the sharded
+    exact solve's interior carries 2 bs + 1 of them).  C_k = Dt_k^-1 U_k,
+    d_k = Dt_k^-1 (B_k - L_k d_{k-1}) with Dt_k = D_k - L_k C_{k-1}; then
+    X_k = d_k - C_k X_{k+1}."""
     N, bs = A.nblocks, A.bs
     lead = A.diag.shape[:-3]
     zero_blk = A.diag.new_zeros(lead + (bs, bs))
@@ -165,7 +167,7 @@ def btd_block_thomas(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
     for k in range(N):
         Dk = A.diag[..., k, :, :]
         Uk = A.upper[..., k, :, :] if k < N - 1 else zero_blk
-        bk = b[..., k, :, None]
+        bk = B[..., k, :, :]
         if k == 0:
             Dt, dt = Dk, bk
         else:
@@ -179,7 +181,14 @@ def btd_block_thomas(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
     xs[N - 1] = d[N - 1]
     for k in range(N - 2, -1, -1):
         xs[k] = d[k] - C[k] @ xs[k + 1]
-    return torch.stack(xs, dim=-3)[..., 0]
+    return torch.stack(xs, dim=-3)
+
+
+def btd_block_thomas(A: BlockTridiag, b: torch.Tensor) -> torch.Tensor:
+    """Direct block-Thomas (block LU) solve of A x = b, b (..., N, bs),
+    sequential over N (btridiag.py:426-433): ``btd_block_thomas_multi``
+    with one column, the same operations on the same shapes."""
+    return btd_block_thomas_multi(A, b[..., None])[..., 0]
 
 
 # ------------------------------------------------------------ preconditioners

@@ -20,7 +20,9 @@ by PCG: ``btridiag.pcg``, or with ``use_kernel_pcg`` the fused PCG of
 ops/fused_pcg.py (kernel K4 on CUDA tensors).  Method "N" assembles and
 solves the dense KKT system instead (``solve_dense``): one (T + M)^2
 matrix per scenario, LU with partial pivoting, and the normal equations
-for the scenarios whose factorization meets a zero pivot.
+for the scenarios whose factorization meets a zero pivot.  With a
+DeviceMesh, ``solve_schur_sharded`` partitions the generic assembly and
+its solve over the mesh's horizon dim (parallel/horizon.py).
 
 Every block carries the scenario batch as its leading axis: H (B, N, n, n),
 g (B, N, n), A (B, N-1, nx, nx), B (B, N-1, nx, nu), defect (B, N, nx),
@@ -463,6 +465,33 @@ class KKTSystem:
         else:
             dxu = self.recover_dxu(invG, E, F, blocks, lam)
         return dxu, lam, stats
+
+    def solve_schur_sharded(self, blocks: KKTBlocks, rho, mesh, axis: str,
+                            pcg_tol: float = 1e-6,
+                            pcg_max_iter: int = 100,
+                            precond: str = "SS",
+                            guess: Optional[torch.Tensor] = None,
+                            pcg_relative: bool = False,
+                            exact: bool = False):
+        """Horizon-sharded Schur solve (kkt.py:543-579): the per-knot
+        inverse and assembly work and the solve, PCG or (``exact``) the
+        SPIKE substructured direct solve, partitioned over ``axis`` of the
+        DeviceMesh ``mesh`` (parallel.horizon.sharded_schur_solve), with
+        the KKT blocks replicated on every rank.  It always takes the
+        generic layout (row groups [defect; hard], bs = nx + m).  Returns
+        (dxu (B, N, n), lam (B, N, bs), stats), replicated."""
+        from trajoptmpcreference_tpu_torch.parallel.horizon import (
+            sharded_schur_solve,
+        )
+        E, F, rhs, D = self._EF(blocks)
+        G = self._regularized_G(blocks, rho)
+        if guess is None:
+            guess = torch.zeros_like(rhs)
+        dxu, lam, iters, converged = sharded_schur_solve(
+            E, F, rhs, D, G, blocks.g, guess, mesh.get_group(axis),
+            precond=precond, exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
+            relative=pcg_relative, exact=exact)
+        return dxu, lam, SchurSolveStats(iters, converged)
 
 
 @functools.lru_cache(maxsize=None)

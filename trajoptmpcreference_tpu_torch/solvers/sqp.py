@@ -23,7 +23,10 @@ batch-invariance freeze, sqp.py:605-615, :673-675; the soft-constraint
 state included), and one host check per iteration ends the loop once every
 scenario is done.
 
-Horizon sharding (the JAX ``mesh`` / ``horizon_axis``) is not ported.
+With a ``mesh`` (a DeviceMesh with a 'horizon' dim) the Schur solve runs
+horizon-sharded over that dim (kkt.solve_schur_sharded: PCG with halo
+matvecs, or for method "S" the SPIKE exact solve); every rank runs the
+whole SQP loop on replicated data and takes the same trip counts.
 ``trace_linsys`` carries the PCG dual trace in each iteration's QP stats,
 which ``utils.trace.solve_traced`` records.
 """
@@ -145,6 +148,12 @@ class SQPSolver:
     method: str
     options: SQPOptions
     kkt: KKTSystem
+    # horizon sharding (sqp.py:168-173): with a DeviceMesh the Schur
+    # assembly and solve run partitioned over mesh[horizon_axis]
+    # (kkt.solve_schur_sharded), for long horizons; a batch of scenarios
+    # is split with parallel.shard_solve instead
+    mesh: Optional[Any] = None
+    horizon_axis: str = "horizon"
 
     def _ks(self, like):
         return torch.arange(self.N - 1, device=like.device)
@@ -382,14 +391,25 @@ class SQPSolver:
                 torch.zeros_like(singular, dtype=torch.long),
                 torch.ones_like(singular)), singular
         use_pcg = self.method.startswith("PCG")
+        no_singular = lambda: torch.zeros(rho.shape, dtype=torch.bool,
+                                          device=rho.device)
+        if self.mesh is not None:
+            # horizon-sharded Schur: PCG (halo matvecs) or, for method "S",
+            # the SPIKE substructured exact solve (sqp.py:319-330)
+            dxu, lam, stats = self.kkt.solve_schur_sharded(
+                blocks, rho, self.mesh, self.horizon_axis,
+                pcg_tol=o.exit_tolerance_linSys,
+                pcg_max_iter=o.max_iter_linSys,
+                precond=self.method[4:] if use_pcg else "SS", guess=guess,
+                pcg_relative=o.pcg_relative, exact=not use_pcg)
+            return dxu, lam, stats, no_singular()
         dxu, lam, stats = self.kkt.solve_schur(
             blocks, rho, use_pcg=use_pcg, pcg_tol=o.exit_tolerance_linSys,
             pcg_max_iter=o.max_iter_linSys,
             precond=self.method[4:] if use_pcg else "SS",
             guess=guess if use_pcg else None, pcg_relative=o.pcg_relative,
             trace_residual=o.trace_linsys)
-        return dxu, lam, stats, torch.zeros(rho.shape, dtype=torch.bool,
-                                            device=rho.device)
+        return dxu, lam, stats, no_singular()
 
     # --------------------------------------------------- one SQP iteration
     def sqp_iterate(self, X, U, J, c, merit, rho, drho, guess, mu, xs,
@@ -546,13 +566,19 @@ def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
              N: int, dt: float, method: str = "N",
              options: Optional[SQPOptions] = None,
              exact_schur: str = "thomas",
-             use_kernel_pcg: bool = False) -> SQPSolver:
+             use_kernel_pcg: bool = False,
+             mesh=None, horizon_axis: str = "horizon") -> SQPSolver:
     """Build an SQP solver (ref: TrajoptMPCReference.py:29-42,510;
     sqp.py:690-742).  ``method`` accepts a string or a SQPSolverMethods
     member: "N", "S", "PCG-J", "PCG-BJ" or "PCG-SS".
     exact_schur: "thomas", "cr" or "cr_refine" (method "S").
     use_kernel_pcg: run the PCG methods' Schur solve as the fused PCG of
-    ops/fused_pcg (kernel K4 on CUDA tensors)."""
+    ops/fused_pcg (kernel K4 on CUDA tensors).
+    mesh + horizon_axis: run the Schur phase horizon-sharded over the
+    named dim of a DeviceMesh (parallel.make_mesh): the PCG methods
+    iterate with halo matvecs, method "S" takes the SPIKE exact solve
+    (parallel.horizon.sharded_btd_exact, >= 3 local block rows).  N must
+    divide by the dim's size."""
     from trajoptmpcreference_tpu_torch.solvers.methods import method_str
     method = method_str(method)
     if method not in SQP_METHODS:
@@ -568,5 +594,20 @@ def make_sqp(plant: Plant, cost: Cost, cset: Optional[C.ConstraintSet],
     options = options or SQPOptions()
     kkt = KKTSystem(plant=plant, cost=cost, cset=cset, N=N, dt=dt,
                     exact_schur=exact_schur, use_kernel_pcg=use_kernel_pcg)
+    if mesh is not None:
+        from trajoptmpcreference_tpu_torch.parallel.batch import axis_size
+        if method == "N":
+            raise ValueError(
+                "horizon sharding requires a Schur method: PCG-* (halo "
+                "matvec iterations) or S (SPIKE substructured exact solve)")
+        P = axis_size(mesh, horizon_axis)
+        if N % P:
+            raise ValueError(
+                f"N={N} must divide by the horizon axis size {P}")
+        if method == "S" and N // P < 3:
+            raise ValueError(
+                f"the sharded exact solve needs >= 3 local block rows "
+                f"(N={N}, shards={P}); use fewer shards or a PCG method")
     return SQPSolver(plant=plant, cost=cost, cset=cset, N=N, dt=dt,
-                     method=method, options=options, kkt=kkt)
+                     method=method, options=options, kkt=kkt, mesh=mesh,
+                     horizon_axis=horizon_axis)
