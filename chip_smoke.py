@@ -21,8 +21,9 @@ Phases (each prints its own numbers; any failure exits non-zero):
    each block size its register variant is built for (bs = 2-14, each at
    the most rows that variant takes), at block sizes its shared-operator
    variant reads at run time, at the first design's largest shapes (N =
-   156 in f32, 78 in f64, bs = 12; these at 12 fixed iterations), and its
-   shared-memory limit;
+   156 in f32, 78 in f64, bs = 12; these at 12 fixed iterations), and at
+   N = 256 in f64 (the global operator: the shape the shared-memory limit
+   refused until K4 had its third variant);
 4. each kernel's time beside its plain version's and its bound, median of
    20, with two timers (kernels/timing.py): CUDA events around one call
    (``ms``, the yardstick of earlier runs) and device time behind a spin
@@ -163,7 +164,35 @@ Phases (each prints its own numbers; any failure exits non-zero):
    relative, a 1e-6 fault planted in K1's output above that bar; K3's
    end-effector rows against native ee_pos under 1e-12, and its J qd rows
    against native's central-difference Jacobian under 1e-7 of max|J|
-   max|qd|.
+   max|qd|;
+23. K4's storage dtypes (make_batched_pcg's precond_dtype /
+   operator_dtype): K4 on operands stored narrow (bf16 or f16 inverses,
+   bf16 inverses and blocks, f32 under f64 operands; J, BJ and SS at B =
+   512, N = 64, bs = 12, and the shared operator at bs = 5) against
+   pcg_fused_plain on the same stored operands, fixed iterations under
+   phase 3's bars and run to convergence on the true residual r'r with
+   equal iteration counts; on the flagship's cold-start Schur systems the
+   f32 residuals, gap to the exact solution and iterations with bf16
+   inverses beside f32 ones (reported);
+24. K4 beyond one block's shared memory (the global operator): random SPD
+   and negative-definite systems, BJ and SS, in f32 at (N, bs) = (64, 24),
+   (256, 12), (1,024, 12) and in f64 at (64, 24), (256, 12), against
+   pcg_fused_plain under phase 3's bars with equal counts; its times at
+   (64, 24) and (256, 12) f32 beside the bound; the generic (bs = 24)
+   Schur operator of the torque-limited flagship's cold QP in f64 under
+   phase 8's bar (f32 residuals reported); one cold PCG-SS solve of the
+   long-horizon flagship (N = 256, 3.84 s) through K1-K4 in f64 against
+   K4's plain version under phase 5's bar, with a K4 exiting a decade
+   early above it, and the f32 solve's events time and launches;
+25. the examples (trajoptmpcreference_tpu_torch.examples) on the card,
+   each printing its own lines: mpc_arm6 as shipped (N = 64, 100 steps,
+   QP-PCG-SS) and with --torque-limit 6, in f64 (the final end-effector
+   error and max |u| held to the JAX script's own f64 CPU values under the
+   larger of 1e-6 relative and 3x the loop's one-ulp spread: the loop is
+   chaotic) and in f32; batch_sweep --links 6 --N 64 --n-goals 512 by
+   methods S and PCG-SS (solves/s, converged count, median error);
+   pendulum's three blocks; K1-K3 launched in mpc_arm6 and batch_sweep,
+   and K4 in none (the examples never route PCG through it).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.
@@ -253,6 +282,28 @@ SHARDED_BAR, RESIDUAL_X = 1e-6, 10
 # of max|J| max|qd|
 NATIVE_STATES = 256
 NATIVE_TOL = {"fd": 1e-10, "fd_grad": 1e-10, "ee_pos": 1e-12, "Jqd": 1e-7}
+# phase 23: K4's storage dtypes (pallas_pcg.py:365-368); the convergence
+# runs exit on the true residual r'r, relative: |r| under 1e-4 |r0| in f32,
+# 1e-6 in f64; in f32 at most STORAGE_EDGE of the scenarios may stop one
+# iteration apart (their exit met inside f32 rounding)
+STORAGE_CONV_TOL = {"torch.float32": 1e-8, "torch.float64": 1e-12}
+STORAGE_EDGE = 0.01
+# phase 24: K4's global operator (every shape over one block's shared
+# memory) on random systems, (dtype, N, bs, B); the long-horizon flagship
+# (N = 256, dt = 0.015: 3.84 s); its planted fault exits a decade early
+GLOBAL_SHAPES = [("float32", 64, 24, 512), ("float32", 256, 12, 512),
+                 ("float32", 1024, 12, 64), ("float64", 64, 24, 512),
+                 ("float64", 256, 12, 512)]
+LONG_N, EARLY_EXIT_X = 256, 10.0
+# phase 25: the JAX package's mpc_arm6 on the CPU in f64 (N = 64, 100
+# steps, QP-PCG-SS; tests/examples_reference.py): final end-effector error
+# and max |u| applied, without and with the torque limit of 6
+ARM6_JAX = {0.0: (0.23412767962265177, 4.12935119825503),
+            6.0: (0.23412767962265177, 4.12935119825503)}
+ARM6_TOL, ARM6_MOVES = 1e-6, 7
+# the examples' child process (the pendulum and the spread loops) must end
+# within this many seconds of the phase's own runs
+EXAMPLES_CHILD_S = 600
 REPLACES = {"fd_grad": "trajoptmpcreference_tpu/ops/lanes.py:444",
             "fd": "trajoptmpcreference_tpu/ops/lanes.py:486",
             "task_vec": "trajoptmpcreference_tpu/ops/kinematics.py:283",
@@ -339,6 +390,10 @@ def main():
             + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_sharedI{t}E")
             + f"; dynamic shared memory {FP.smem_bytes(156, PCG_BS, dt)} "
             f"bytes per block at N=156, bs={PCG_BS}")
+        log(f"[ptxas] pcg global-operator variant ({tag}): "
+            + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_globalI{t}E")
+            + f"; dynamic shared memory {FP.smem_bytes(256, PCG_BS, dt)} "
+            f"bytes per block at N=256, bs={PCG_BS}")
 
     # ---- 3. kernels vs plain versions (f32, on the card)
     plant = URDFPlant(robot=serial_arm(6))
@@ -576,6 +631,17 @@ def main():
 
     # ---- 22. K1-K3 against the native C++ dynamics
     native_oracle(torch, lanes, K, x0s_np, dev)
+
+    # ---- 23. K4's storage dtypes
+    storage_dtypes(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev)
+
+    # ---- 24. K4 beyond one block's shared memory: the global operator,
+    # the generic path's operator and the long-horizon flagship
+    beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
+                  events_ms, device_ms, x0s_np, goals_np, dev)
+
+    # ---- 25. the examples on the card
+    examples_on_card(torch, FP, lanes, K, dev)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -1086,7 +1152,6 @@ def random_systems(torch, BT, B, N, bs, seed, sign, dtype, dev):
 def check_pcg(torch, BT, FP, dev):
     """K4 against pcg_fused_plain on the card; returns max|d| of the
     B = 512 SS SPD fixed-iteration check."""
-    from trajoptmpcreference_tpu_torch.kernels import _build
     f32, f64 = torch.float32, torch.float64
     fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
     conv = dict(tol=PCG_CONV_TOL, max_iter=PCG_CONV_ITERS, relative=True)
@@ -1128,9 +1193,9 @@ def check_pcg(torch, BT, FP, dev):
     # it takes; block sizes the shared-operator variant reads at run time;
     # the first design's largest shapes (the shared-operator variant at a
     # built block size)
-    uses_regs = _build.library("pcg").tmr_pcg_uses_registers
-    regs = lambda Nn, bs: "registers" if uses_regs(Nn, bs) else "shared operator"
-    largest = lambda bs: max(Nn for Nn in range(1, 1025) if uses_regs(Nn, bs))
+    regs = lambda Nn, bs, dt=f32: FP.VARIANTS[FP.variant(Nn, bs, dt)]
+    largest = lambda bs: max(Nn for Nn in range(1, 1025)
+                             if FP.variant(Nn, bs, f32) == 0)
     cases = ([(bs, largest(bs), f32) for bs in range(2, 15, 2)]
              + [(5, N, f32), (3, 2 * N, f32), (PCG_BS, 156, f32),
                 (PCG_BS, 78, f64)])
@@ -1145,30 +1210,26 @@ def check_pcg(torch, BT, FP, dev):
             torch.cuda.synchronize()
             rel = rel_err(out, ref)
             log(f"[check] pcg {pre} negdef {str(dt)[6:]} B={B} N={Nn} bs={bs} "
-                f"({regs(Nn, bs)}, {FP.smem_bytes(Nn, bs, dt)} bytes of "
+                f"({regs(Nn, bs, dt)}, {FP.smem_bytes(Nn, bs, dt)} bytes of "
                 f"shared memory), {PCG_SHAPE_ITERS} iterations: "
                 f"max|d|/max|ref| = {rel:.3e} (limit {limit:.0e}), iteration "
                 f"counts equal {torch.equal(it, it_ref)}")
             assert torch.equal(it, it_ref), (pre, bs, Nn, dt)
             assert rel < limit, (pre, bs, Nn, dt, rel)
-    # f64 at the flagship's shape (the register variant) and a shape over
-    # the size limit
-    S, b = random_systems(torch, BT, B, N, PCG_BS, 8, -1.0, f64, dev)
-    ops = FP.pack_operands(S, b, "SS")
-    out, _ = FP.pcg_fused_kernel(*ops, precond="SS", **fixed)
-    ref, _ = FP.pcg_fused_plain(*ops, precond="SS", **fixed)
-    rel = rel_err(out, ref)
-    log(f"[check] pcg SS negdef f64 B={B} N={N} ({regs(N, PCG_BS)}): "
-        f"max|d|/max|ref| = {rel:.3e} (limit 1e-10)")
-    assert rel < 1e-10, rel
-    S, b = random_systems(torch, BT, 2, 4 * N, PCG_BS, 9, 1.0, f64, dev)
-    try:
-        FP.pcg_fused_kernel(*FP.pack_operands(S, b, "SS"), precond="SS",
-                            **fixed)
-    except ValueError as e:
-        log(f"[check] pcg N={4 * N} f64 refused as it should be: {e}")
-    else:
-        raise AssertionError("K4 accepted a system over the shared-memory limit")
+    # f64 at the flagship's shape (the register variant) and at a shape
+    # over one block's shared memory, which the first two variants refused
+    # (the global operator)
+    for Bn, Nn, seed, sign in ((B, N, 8, -1.0), (2, 4 * N, 9, 1.0)):
+        S, b = random_systems(torch, BT, Bn, Nn, PCG_BS, seed, sign, f64, dev)
+        ops = FP.pack_operands(S, b, "SS")
+        out, it = FP.pcg_fused_kernel(*ops, precond="SS", **fixed)
+        ref, it_ref = FP.pcg_fused_plain(*ops, precond="SS", **fixed)
+        rel = rel_err(out, ref)
+        log(f"[check] pcg SS {'negdef' if sign < 0 else 'spd'} f64 B={Bn} "
+            f"N={Nn} ({regs(Nn, PCG_BS, f64)}): max|d|/max|ref| = {rel:.3e} "
+            f"(limit 1e-10), iteration counts equal {torch.equal(it, it_ref)}")
+        assert torch.equal(it, it_ref), Nn
+        assert rel < 1e-10, (Nn, rel)
     return max_abs
 
 
@@ -1513,6 +1574,439 @@ def riccati_pair(torch, F, knot_params, events_ms, x0s_np, goals_np, dev):
             "(torch.profiler)")
 
 
+def storage_dtypes(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
+    """Phase 23.  K4 with its packed blocks stored narrower than the
+    operands (make_batched_pcg's precond_dtype / operator_dtype) against
+    pcg_fused_plain on the same stored operands: J, BJ and SS at B = 512,
+    N = 64, bs = 12 with bf16 or f16 inverses, and bf16 inverses and
+    blocks, in f32; f32 storage under f64 operands; bf16 inverses at the
+    shared operator's bs = 5.  PCG_FIXED_ITERS fixed iterations under the
+    phase-3 bars, then both run to convergence on the true residual r'r
+    (STORAGE_CONV_TOL) under the same bars, with equal iteration counts:
+    in f64 in every scenario; in f32 in all but at most STORAGE_EDGE of
+    the scenarios, each of those one iteration apart (there the exit
+    meets the threshold inside f32 rounding: the recursive residual at
+    1e-4 of |r0| carries ~1e-3 relative rounding, and J's r'r falls ~2x
+    an iteration), their number reported.  Reported: on the flagship's
+    cold-start Schur systems (phase 5's), the f32 residuals, the gap to
+    the exact solution and the iterations with bf16 inverses against f32
+    ones."""
+    f32, f64, bf16, f16 = (torch.float32, torch.float64, torch.bfloat16,
+                           torch.float16)
+    fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
+    name = lambda d: "-" if d is None else str(d)[6:]
+    cases = [(f32, PCG_BS, bf16, None), (f32, PCG_BS, f16, None),
+             (f32, PCG_BS, bf16, bf16), (f64, PCG_BS, f32, None),
+             (f64, PCG_BS, f32, f32), (f32, 5, bf16, None)]
+    for dt, bs, pre_dt, op_dt in cases:
+        limit = PCG_TOL if dt == f32 else 1e-10
+        conv = dict(tol=STORAGE_CONV_TOL[str(dt)], max_iter=PCG_CONV_ITERS,
+                    relative=True)
+        S, b = random_systems(torch, BT, B, N, bs, 40 + bs, -1.0, dt, dev)
+        for pre in ("J", "BJ", "SS") if bs == PCG_BS else ("SS",):
+            d, u, p, r = FP.pack_operands(S, b, pre)
+            ops = (d if op_dt is None else d.to(op_dt), u, p.to(pre_dt), r)
+            out, it = FP.pcg_fused_kernel(*ops, precond=pre, **fixed)
+            ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
+            xc, itc = FP.pcg_fused_kernel(*ops, precond=pre, **conv)
+            xr, itr = FP.pcg_fused_plain(*ops, precond=pre, **conv)
+            torch.cuda.synchronize()
+            rel, relc = rel_err(out, ref), rel_err(xc, xr)
+            apart = (itc - itr).abs()
+            edge = 0 if dt == f64 else int(STORAGE_EDGE * B)
+            log(f"[storage] pcg {pre} negdef {name(dt)} operands, inverses "
+                f"{name(pre_dt)}, blocks {name(op_dt) if op_dt else name(dt)}, "
+                f"B={B} N={N} bs={bs} ({FP.VARIANTS[FP.variant(N, bs, dt)]}):"
+                f" {PCG_FIXED_ITERS} iterations max|d|/max|ref| = {rel:.3e}; "
+                f"to r'r <= {conv['tol']:.0e} r0'r0: max|d|/max|ref| = "
+                f"{relc:.3e}, {int(itc.min())}-{int(itc.max())} iterations, "
+                f"counts differ in {int((apart > 0).sum())} scenarios (at "
+                f"most {edge}, by one iteration) (limit {limit:.0e})")
+            assert torch.equal(it, it_ref), (pre, dt, pre_dt, op_dt)
+            assert int((apart > 0).sum()) <= edge and int(apart.max()) <= 1, (
+                pre, dt, pre_dt, op_dt)
+            assert rel < limit and relc < limit, (pre, dt, pre_dt, rel, relc)
+            assert bool(torch.isfinite(xc).all())
+    S, gam, kw = cold_schur(torch, F, knot_params, X0, U0, x0s, goals, dev)
+    S64 = BT.BlockTridiag(S.diag.double(), S.upper.double())
+    exact = BT.btd_cyclic_reduction(S64, gam.double())
+    for pre_dt in (None, bf16):
+        d, u, p, r = FP.pack_operands(S, gam, "SS")
+        x, it = FP.pcg_fused_kernel(d, u, p if pre_dt is None else
+                                    p.to(pre_dt), r, **kw)
+        res, _ = schur_residual(torch, BT, S, gam, x)
+        gap = ((x.double() - exact).abs().amax((1, 2))
+               / exact.abs().amax((1, 2)))
+        log(f"[storage] flagship cold-start Schur systems, f32, SS inverses "
+            f"stored {name(pre_dt) if pre_dt else 'float32'} (exit on "
+            f"{'r' + chr(39) + 'r' if pre_dt else 'nu'}, the solver's "
+            f"relative {kw['tol']:g}, {kw['max_iter']} iterations): |S x - "
+            f"gam|/|gam| {fmt_residual(res)}; max|x - x_exact|/max|x_exact| "
+            f"per scenario median {float(gap.median()):.3e} max "
+            f"{float(gap.max()):.3e}; iteration counts "
+            + json.dumps(dict(sorted(collections.Counter(
+                it.tolist()).items()))) + " (reported)")
+
+
+@contextlib.contextmanager
+def k4_as(FP, fn):
+    """While in the block, the fused PCG's solves on the card call ``fn``
+    in K4's place (ops/fused_pcg.make_batched_pcg looks K4 up at each
+    call).  K4's wrapper counts its launches on the function its name is
+    bound to, so ``fn`` carries a counter, which nothing reads."""
+    saved = FP.pcg_fused_kernel
+    fn.launches = 0
+    FP.pcg_fused_kernel = fn
+    try:
+        yield
+    finally:
+        FP.pcg_fused_kernel = saved
+
+
+def beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
+                  events_ms, device_ms, x0s_np, goals_np, dev):
+    """Phase 24.  K4's global operator (variant 2: the packed blocks in
+    device memory, the vectors in a workspace) on the shapes the first two
+    variants refuse: random SPD and negative-definite systems, BJ and SS,
+    PCG_FIXED_ITERS fixed iterations against pcg_fused_plain under the
+    phase-3 bars with equal counts; its times at (N, bs) = (64, 24) and
+    (256, 12) in f32 beside the bound; the generic (bs = 24) Schur
+    operator of the torque-limited flagship's cold QP in f64 under phase
+    8's bar; and the long-horizon (N = 256) PCG-SS flagship's cold solve
+    through K4 against K4's plain version in f64 under phase 5's bar."""
+    fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
+    for dname, Nn, bs, Bn in GLOBAL_SHAPES:
+        dt = getattr(torch, dname)
+        limit = PCG_TOL if dt == torch.float32 else 1e-10
+        variant = FP.variant(Nn, bs, dt)
+        for sign, kind in ((1.0, "spd"), (-1.0, "negdef")):
+            S, b = random_systems(torch, BT, Bn, Nn, bs, 50 + Nn + bs, sign,
+                                  dt, dev)
+            for pre in ("BJ", "SS"):
+                ops = FP.pack_operands(S, b, pre)
+                out, it = FP.pcg_fused_kernel(*ops, precond=pre, **fixed)
+                ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
+                torch.cuda.synchronize()
+                rel = rel_err(out, ref)
+                log(f"[global] pcg {pre} {kind} {dname} B={Bn} N={Nn} bs={bs}"
+                    f" ({FP.VARIANTS[variant]}, {FP.smem_bytes(Nn, bs, dt)} "
+                    f"bytes of shared memory): {PCG_FIXED_ITERS} iterations "
+                    f"max|d|/max|ref| = {rel:.3e} (limit {limit:.0e}), "
+                    f"iteration counts equal {torch.equal(it, it_ref)}")
+                assert variant == 2, (Nn, bs, dname)
+                assert bool(torch.isfinite(out).all())
+                assert torch.equal(it, it_ref), (pre, kind, dname, Nn, bs)
+                assert rel < limit, (pre, kind, dname, Nn, bs, rel)
+            del S, b, ops, out, ref
+    times = {}
+    kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
+    for Nn, bs in ((64, 24), (256, 12)):
+        S, b = random_systems(torch, BT, B, Nn, bs, 91, 1.0, torch.float32,
+                              dev)
+        ops = FP.pack_operands(S, b, "SS")
+        call = lambda: FP.pcg_fused_kernel(*ops, **kw)
+        t_plain = events_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
+        t_ev, t_dev = events_ms(call), device_ms(call)
+        bnd, by, need, did, hist = pcg_bound(torch, opcount, FP, ops, kw)
+        times[(Nn, bs)] = (t_ev, t_dev, t_plain, bnd, by)
+        log(f"[time] pcg global operator B={B} N={Nn} bs={bs} SS 40 "
+            f"iterations: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
+            f"device; plain {t_plain:.4f} ms events; bound {bnd:.4f} ms ({by};"
+            f" the function needs {need} operations (kernels/needed_ops.cpp),"
+            f" the kernel does {did}; iterations {json.dumps(hist)}), "
+            f"{100 * bnd / t_dev:.1f}% of bound in device time (medians of 20)")
+    generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev)
+    long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev)
+    return times
+
+
+def generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
+    """K4 on the generic (bs = nx + m = 24) Schur operator of the
+    torque-limited flagship's cold QP (AS_KNOBS, zero controls, its first
+    rho), assembled by kkt.schur_blocks as the sharded solve of phase 21
+    assembles it: the global operator at N = 64.  f64 under phase 8's bar
+    (hold_pcg_f64, its planted fault above it) for SS, BJ and J; f32
+    residuals reported beside cyclic reduction's and the plain version's,
+    at the PCG flagship's settings (relative 1e-4, 40 iterations)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def operator(dt):
+        x0s = torch.as_tensor(x0s_np, dtype=dt, device=dev)
+        goals = torch.as_tensor(goals_np, dtype=dt, device=dev)
+        X0 = x0s[..., None].expand(B, 12, N).contiguous()
+        U0 = torch.zeros((B, 6, N - 1), dtype=dt, device=dev)
+        _, cost, solver = F.flagship(N=N, dtype=dt, device=dev, **F.AS_KNOBS)
+        kkt, o = solver.kkt, solver.options
+        p = knot_params(cost.default_params._replace(xg=goals))
+        blocks = kkt.form_blocks(X0, U0, x0s, p, ())
+        S, gam, *_ = kkt.schur_blocks(
+            blocks, torch.full((B,), o.rho_init, dtype=dt, device=dev))
+        log(f"[generic] the generic Schur operator, {str(dt)[6:]}: B={B} "
+            f"N={N} bs={S.bs} ({FP.VARIANTS[FP.variant(N, S.bs, dt)]}); "
+            f"active hard rows {int(blocks.hact.sum())} of "
+            f"{blocks.hact.numel()} (zero controls)")
+        assert S.bs == 24 and FP.variant(N, S.bs, dt) == 2
+        return S, gam
+
+    S, gam = operator(torch.float64)
+    for pre in ("SS", "BJ", "J"):
+        hold_pcg_f64(torch, FP, S, gam, pre, gen, dev, "[generic]")
+    S, gam = operator(torch.float32)
+    kw = dict(tol=1e-4, max_iter=40, relative=True)
+    cr, _ = schur_residual(torch, BT, S, gam, BT.btd_cyclic_reduction(S, gam))
+    log(f"[generic] cyclic reduction, f32: |S x - gam|/|gam| per scenario "
+        f"{fmt_residual(cr)} (reported)")
+    for pre in ("SS", "BJ"):
+        ops = FP.pack_operands(S, gam, pre)
+        for label, fn in (("kernel", FP.pcg_fused_kernel),
+                          ("plain", FP.pcg_fused_plain)):
+            x, it = fn(*ops, precond=pre, **kw)
+            r, _ = schur_residual(torch, BT, S, gam, x)
+            log(f"[generic] pcg {pre} f32 {label} (relative 1e-4, 40 "
+                f"iterations): |S x - gam|/|gam| per scenario "
+                f"{fmt_residual(r)}; iteration counts "
+                + json.dumps(dict(sorted(collections.Counter(
+                    it.tolist()).items()))) + " (reported)")
+            assert all(math.isfinite(v) for v in r), (pre, label, r)
+
+
+def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
+    """One cold PCG-SS solve of the long-horizon flagship (N = LONG_N,
+    dt = 0.015, B = 512, PCG_KNOBS, use_kernel_pcg) through K1-K4: in f64
+    with K4 on against K4's plain version in its place (k4_as), equal exit
+    codes and SQP iterations, max|dU|/max|U| under phase 5's bar (the
+    larger of SOLVE_BAR and SOLVE_FLOOR_X times the gap the plain
+    version's output moved one ulp makes); K4 exiting a decade early
+    (tolerance x EARLY_EXIT_X, a planted fault) must read above it.  The
+    f32 solve's events time and K1-K4's launches are reported."""
+    kernel, plain = FP.pcg_fused_kernel, FP.pcg_fused_plain
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def moved(*args, **kw):
+        dx, it = plain(*args, **kw)
+        s = torch.randint(0, 2, dx.shape, generator=gen, device=dev)
+        return dx * (1 + (2 * s - 1).to(dx.dtype)
+                     * torch.finfo(dx.dtype).eps), it
+
+    def early(*args, tol, **kw):
+        return kernel(*args, tol=EARLY_EXIT_X * tol, **kw)
+
+    def problem(dt):
+        x0s = torch.as_tensor(x0s_np, dtype=dt, device=dev)
+        goals = torch.as_tensor(goals_np, dtype=dt, device=dev)
+        X0 = x0s[..., None].expand(B, 12, LONG_N).contiguous()
+        U0 = torch.zeros((B, 6, LONG_N - 1), dtype=dt, device=dev)
+        _, cost, solver = F.flagship(N=LONG_N, dtype=dt, device=dev,
+                                     use_kernel_pcg=True, **F.PCG_KNOBS)
+        return solver, X0, U0, cost.default_params._replace(xg=goals)
+
+    solver, X0, U0, params = problem(torch.float64)
+    bs = solver.kkt.bs
+    sols = {}
+    for key, fn in (("on", kernel), ("off", plain), ("ulp", moved),
+                    ("fault", early)):
+        with k4_as(FP, fn):
+            sols[key] = solver.solve(X0, U0, params)
+    b = sols["off"]
+    gap = lambda key: float((sols[key].U - b.U).abs().max() / b.U.abs().max())
+    rel, floor, fault = gap("on"), gap("ulp"), gap("fault")
+    bar = max(SOLVE_BAR, SOLVE_FLOOR_X * floor)
+    a = sols["on"]
+    exits_eq = torch.equal(a.exit_sqp, b.exit_sqp)
+    iters_eq = torch.equal(a.sqp_iters, b.sqp_iters)
+    log(f"[long] PCG-SS flagship N={LONG_N} (horizon {LONG_N * F.DT:.2f} s) "
+        f"B={B} bs={bs} cold solve, f64 ({FP.VARIANTS[FP.variant(LONG_N, bs, torch.float64)]}): "
+        f"K4 vs its plain version max|dU|/max|U| = {rel:.3e}; plain with "
+        f"its output moved one ulp {floor:.3e}; bar {bar:.3e} (max of "
+        f"{SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap); K4 exiting "
+        f"at {EARLY_EXIT_X:g}x its tolerance {fault:.3e} (must exceed the "
+        f"bar); exit codes equal {exits_eq} ({b.exit_sqp.bincount().tolist()}"
+        f"), SQP iterations equal {iters_eq}")
+    assert exits_eq and iters_eq
+    assert rel < bar, (rel, bar)
+    assert fault > bar, (fault, bar)
+    del sols, a, b
+    solver, X0, U0, params = problem(torch.float32)
+    kernels = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
+               kernel)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    res = solver.solve(X0, U0, params)
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]
+    t = events_ms(lambda: solver.solve(X0, U0, params), reps=1)
+    log(f"[long] PCG-SS flagship N={LONG_N} B={B} cold solve, f32: "
+        f"{t:.3f} ms events; launches K1 {counts[0]}, K2 {counts[1]}, K3 "
+        f"{counts[2]}, K4 {counts[3]}; exit codes "
+        f"{res.exit_sqp.bincount().tolist()}, U finite "
+        f"{bool(torch.isfinite(res.U).all())}")
+    assert all(c > 0 for c in counts), counts
+
+
+def examples_on_card(torch, FP, lanes, K, dev):
+    """Phase 25.  The examples (trajoptmpcreference_tpu_torch.examples) on
+    the card, each printing its own lines: mpc_arm6 as shipped and with
+    --torque-limit 6, in f64 (its final end-effector error and max |u|
+    held to the JAX script's f64 CPU values, ARM6_JAX, under the larger of
+    ARM6_TOL relative and SOLVE_FLOOR_X times the loop's one-ulp spread,
+    arm6_spread) and in f32; batch_sweep --links 6 --N 64 --n-goals 512 by
+    methods S and PCG-SS; pendulum's three blocks.  K1-K3 must launch in
+    mpc_arm6 and batch_sweep (the pendulum is an analytic plant: no
+    kernel); no example routes PCG through K4.  The pendulum (host-bound
+    at one scenario) and the two spread loops run in a child process
+    (examples_child) beside the rest, which the phase joins at its end."""
+    from trajoptmpcreference_tpu_torch.examples import batch_sweep, mpc_arm6
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.examples_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    kernels = {"fd_grad": lanes.fd_grad_kernel, "fd": lanes.fd_kernel,
+               "task_vec": K.task_vec_kernel, "pcg": FP.pcg_fused_kernel}
+
+    def counted(tag, fn):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in kernels.items()}
+        log(f"[examples] {tag}: launches {json.dumps(counts)}")
+        assert min(counts["fd_grad"], counts["fd"], counts["task_vec"]) > 0
+        assert counts["pcg"] == 0
+        return out
+
+    try:
+        arm6 = {}
+        for dt in (torch.float64, torch.float32):
+            for limit in (0.0, TORQUE_LIMIT):
+                tag = (f"mpc_arm6 --torque-limit {limit:g} --dtype "
+                       f"{str(dt)[6:]}")
+                log(f"[examples] {tag}:")
+                out = counted(tag, lambda: mpc_arm6.run(
+                    torque_limit=limit, device=dev, dtype=dt, warmup=0))
+                assert math.isfinite(out["ee_err"]), out["ee_err"]
+                if dt == torch.float64:
+                    arm6[limit] = (tag, out)
+        for method in ("S", "PCG-SS"):
+            tag = (f"batch_sweep --links 6 --N {N} --n-goals {B} --method "
+                   f"{method}")
+            log(f"[examples] {tag}:")
+            out = counted(tag, lambda: batch_sweep.sweep(
+                links=6, n_goals=B, N=N, method=method, device=dev,
+                warmup=0))
+            assert bool(torch.isfinite(out["res"].X).all())
+        text, _ = child.communicate(timeout=EXAMPLES_CHILD_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    log(text.rstrip())
+    assert child.returncode == 0, "the examples' child process failed"
+    spreads = json.loads(text.strip().splitlines()[-1])
+    for limit, (tag, out) in arm6.items():
+        spread = spreads[f"{limit:g}"]
+        for i, field in enumerate(("ee_err", "max_abs_u")):
+            want, got = ARM6_JAX[limit][i], out[field]
+            bar = max(ARM6_TOL * abs(want), SOLVE_FLOOR_X * spread[i])
+            log(f"[examples] {tag}: {field} {got!r} against the JAX script's "
+                f"f64 CPU value {want!r}: |d| {abs(got - want):.3e}; the "
+                f"loop's one-ulp spread {spread[i]:.3e}; bar {bar:.3e} (max "
+                f"of {ARM6_TOL:.0e} relative and {SOLVE_FLOOR_X} x the "
+                f"spread)")
+            assert abs(got - want) < bar, (tag, field, got, want, bar)
+
+
+def examples_child():
+    """Phase 25's child process: the pendulum example's three blocks on
+    the card (no warm-up run: it launches no kernel), then mpc_arm6's
+    one-ulp spread in f64 without and with the torque limit; its last
+    line is the spreads as JSON."""
+    import torch
+    from trajoptmpcreference_tpu_torch.examples import mpc_arm6, pendulum
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print("[examples] pendulum (child process):", flush=True)
+    out = pendulum.run(device=dev, warmup=0)
+    assert all(bool(torch.isfinite(r.X_applied).all())
+               for r, _ in out["mpc"].values())
+    spreads = {f"{limit:g}": arm6_spread(torch, mpc_arm6, limit, dev)
+               for limit in (0.0, TORQUE_LIMIT)}
+    print(json.dumps(spreads), flush=True)
+
+
+def arm6_spread(torch, mpc_arm6, limit, dev):
+    """mpc_arm6's one-ulp spread in f64 on the card: one batched closed
+    loop (100 steps) of its x0 and ARM6_MOVES copies of x0 each moved by
+    +-1 ulp per element; the largest gap of the moved copies' final
+    end-effector error and max |u| to the unmoved one's.  The loop is
+    chaotic (a one-ulp move of x0 reaches O(1) in the state by step 50 on
+    the CPU), so its final values are held by this spread."""
+    plant, ctrl, x0 = mpc_arm6.config(torque_limit=limit, device=dev,
+                                      dtype=torch.float64)
+    g = torch.Generator(device=dev).manual_seed(4)
+    s = 2 * torch.randint(0, 2, (ARM6_MOVES, 12), generator=g, device=dev) - 1
+    xb = torch.cat([x0, x0 * (1 + s.to(x0.dtype) * torch.finfo(x0.dtype).eps)])
+    res = ctrl.run(xb, steps=mpc_arm6.steps)
+    goal = torch.tensor(mpc_arm6.GOAL, dtype=x0.dtype, device=dev)
+    err = torch.linalg.norm(plant.kinematics.ee_pos_x(
+        res.X_applied[:, :, -1]) - goal, dim=1)
+    umax = res.U_applied.abs().amax((1, 2))
+    return [float((t[1:] - t[0]).abs().max()) for t in (err, umax)]
+
+
+def moved_one_ulp(torch, ops, gen, dev):
+    """Each tensor of ``ops`` times 1 + s eps, s = +-1 per element."""
+    eps = torch.finfo(ops[0].dtype).eps
+    return [t * (1 + eps * (2 * torch.randint(
+        0, 2, t.shape, generator=gen, device=dev) - 1).to(t.dtype))
+        for t in ops]
+
+
+def schur_residual(torch, BT, S, gam, x):
+    """((median, max) per-scenario |S x - gam| / |gam|, the whole batch's),
+    and the per-scenario values, in f64."""
+    S64 = BT.BlockTridiag(S.diag.double(), S.upper.double())
+    g64 = gam.double().flatten(1)
+    res = BT.btd_matvec(S64, x.reshape(gam.shape).double()).flatten(1) - g64
+    rel = res.norm(dim=1) / g64.norm(dim=1)
+    return (float(rel.median()), float(rel.max()),
+            float(res.norm() / g64.norm())), rel
+
+
+def fmt_residual(r):
+    return f"median {r[0]:.3e} max {r[1]:.3e} whole batch {r[2]:.3e}"
+
+
+def hold_pcg_f64(torch, FP, S, gam, pre, gen, dev, tag):
+    """Phase 8's bar for K4 on one f64 Schur operator: K4 and its plain
+    version run PCG_FIXED_ITERS fixed iterations and are held element by
+    element, max|d|/max|ref|, under the larger of 1e-10 and SOLVE_FLOOR_X
+    times the gap that moving the operands by one ulp makes in the plain
+    version; K4 stopped one iteration short (a planted fault) must read
+    above that bar; equal iteration counts.  Returns the packed operands."""
+    fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
+    short = dict(fixed, max_iter=PCG_FIXED_ITERS - 1)
+    ops = FP.pack_operands(S, gam, pre)
+    out, it = FP.pcg_fused_kernel(*ops, precond=pre, **fixed)
+    ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
+    ulp = rel_err(FP.pcg_fused_plain(*moved_one_ulp(torch, ops, gen, dev),
+                                     precond=pre, **fixed)[0], ref)
+    early = rel_err(FP.pcg_fused_kernel(*ops, precond=pre, **short)[0], ref)
+    rel, bar = rel_err(out, ref), max(1e-10, SOLVE_FLOOR_X * ulp)
+    log(f"{tag} pcg {pre} f64, {PCG_FIXED_ITERS} iterations: "
+        f"kernel vs plain max|d|/max|ref| = {rel:.3e}; plain on the "
+        f"operands moved one ulp {ulp:.3e}; bar {bar:.3e} (max of 1e-10 "
+        f"and {SOLVE_FLOOR_X} x the one-ulp gap); the kernel stopped at "
+        f"{PCG_FIXED_ITERS - 1} iterations {early:.3e} (must exceed the "
+        f"bar); iteration counts equal {torch.equal(it, it_ref)}")
+    assert bool(torch.isfinite(out).all()), pre
+    assert torch.equal(it, it_ref), pre
+    assert rel < bar, (pre, rel, bar)
+    assert early > bar, (pre, early, bar)
+    return ops
+
+
 def condensed_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
     """K4 and its plain version on the condensed Schur operator of the
     torque-limited (ACTIVE_SET) flagship, from a plan whose controls reach
@@ -1558,78 +2052,43 @@ def condensed_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
         assert S.bs == 12
         return S, gam, o
 
-    def moved(ops):
-        eps = torch.finfo(ops[0].dtype).eps
-        return [t * (1 + eps * (2 * torch.randint(
-            0, 2, t.shape, generator=gen, device=dev) - 1).to(t.dtype))
-            for t in ops]
-
-    def residual(S, gam, x):
-        S64 = BT.BlockTridiag(S.diag.double(), S.upper.double())
-        g64 = gam.double().flatten(1)
-        res = BT.btd_matvec(S64, x.reshape(gam.shape).double()).flatten(1) - g64
-        rel = res.norm(dim=1) / g64.norm(dim=1)
-        return (float(rel.median()), float(rel.max()),
-                float(res.norm() / g64.norm())), rel
-
-    def fmt(r):
-        return f"median {r[0]:.3e} max {r[1]:.3e} whole batch {r[2]:.3e}"
-
     S, gam, o = operator(torch.float64)
-    cr, _ = residual(S, gam, BT.btd_cyclic_reduction(S, gam))
+    cr, _ = schur_residual(torch, BT, S, gam, BT.btd_cyclic_reduction(S, gam))
     log(f"[constrained] cyclic reduction, f64: |S x - gam|/|gam| per "
-        f"scenario {fmt(cr)} (limit on the median {CR_F64_TOL:.0e})")
+        f"scenario {fmt_residual(cr)} (limit on the median {CR_F64_TOL:.0e})")
     assert cr[0] < CR_F64_TOL, cr
-    fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
-    short = dict(fixed, max_iter=PCG_FIXED_ITERS - 1)
     kw = dict(tol=o.exit_tolerance_linSys, max_iter=o.max_iter_linSys,
               relative=o.pcg_relative)
     for pre in ("SS", "BJ", "J"):
-        ops = FP.pack_operands(S, gam, pre)
-        out, it = FP.pcg_fused_kernel(*ops, precond=pre, **fixed)
-        ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
-        ulp = rel_err(FP.pcg_fused_plain(*moved(ops), precond=pre, **fixed)[0],
-                      ref)
-        early = rel_err(FP.pcg_fused_kernel(*ops, precond=pre, **short)[0], ref)
-        rel, bar = rel_err(out, ref), max(1e-10, SOLVE_FLOOR_X * ulp)
-        log(f"[constrained] pcg {pre} f64, {PCG_FIXED_ITERS} iterations: "
-            f"kernel vs plain max|d|/max|ref| = {rel:.3e}; plain on the "
-            f"operands moved one ulp {ulp:.3e}; bar {bar:.3e} (max of 1e-10 "
-            f"and {SOLVE_FLOOR_X} x the one-ulp gap); the kernel stopped at "
-            f"{PCG_FIXED_ITERS - 1} iterations {early:.3e} (must exceed the "
-            f"bar); iteration counts equal {torch.equal(it, it_ref)}")
-        assert bool(torch.isfinite(out).all()), pre
-        assert torch.equal(it, it_ref), pre
-        assert rel < bar, (pre, rel, bar)
-        assert early > bar, (pre, early, bar)
+        ops = hold_pcg_f64(torch, FP, S, gam, pre, gen, dev, "[constrained]")
         for name, fn in (("kernel", FP.pcg_fused_kernel),
                          ("plain", FP.pcg_fused_plain)):
             x, it = fn(*ops, precond=pre, **kw)
-            r, _ = residual(S, gam, x)
+            r, _ = schur_residual(torch, BT, S, gam, x)
             log(f"[constrained] pcg {pre} f64 {name}, the solver's settings "
                 f"(relative {kw['tol']:g}, {kw['max_iter']} iterations): "
-                f"|S x - gam|/|gam| per scenario {fmt(r)} ({r[2] / cr[2]:.3e} "
+                f"|S x - gam|/|gam| per scenario {fmt_residual(r)} ({r[2] / cr[2]:.3e} "
                 f"x cyclic reduction's); iteration counts "
                 + json.dumps(dict(sorted(collections.Counter(
                     it.tolist()).items()))))
             assert all(math.isfinite(v) for v in r), (pre, name, r)
 
     S, gam, o = operator(torch.float32)
-    cr, _ = residual(S, gam, BT.btd_cyclic_reduction(S, gam))
+    cr, _ = schur_residual(torch, BT, S, gam, BT.btd_cyclic_reduction(S, gam))
     log(f"[constrained] cyclic reduction, f32: |S x - gam|/|gam| per "
-        f"scenario {fmt(cr)} (reported)")
+        f"scenario {fmt_residual(cr)} (reported)")
     for pre in ("SS", "BJ", "J"):
         ops = FP.pack_operands(S, gam, pre)
         runs = (("kernel", FP.pcg_fused_kernel, ops),
                 ("plain", FP.pcg_fused_plain, ops),
                 ("plain, operands moved one ulp", FP.pcg_fused_plain,
-                 moved(ops)))
+                 moved_one_ulp(torch, ops, gen, dev)))
         rels = {}
         for name, fn, args in runs:
             x, _ = fn(*args, precond=pre, **kw)
-            r, rels[name] = residual(S, gam, x)
+            r, rels[name] = schur_residual(torch, BT, S, gam, x)
             log(f"[constrained] pcg {pre} f32 {name}, the solver's settings: "
-                f"|S x - gam|/|gam| per scenario {fmt(r)} (reported)")
+                f"|S x - gam|/|gam| per scenario {fmt_residual(r)} (reported)")
             assert all(math.isfinite(v) for v in r), (pre, name, r)
         apart = []
         for name, _, _ in runs[::2]:
@@ -1741,21 +2200,29 @@ def moved_outputs(torch, dev, targets, rel):
             setattr(cls, name, fn)
 
 
-def insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
-    """K4 and its plain version on the flagship's cold-start Schur systems
-    (the PCG-SS flagship's first QP at rho = 1e-3, relative exit 1e-4, 40
-    iterations).  Those systems have condition ~1e7-1e9, so the check is
-    on residuals, not elements."""
-    _, cost, solver = F.flagship(N=N, dtype=torch.float32, device=dev,
+def cold_schur(torch, F, knot_params, X0, U0, x0s, goals, dev):
+    """The PCG-SS flagship's cold-start Schur systems (its first QP at
+    rho = 1e-3) in X0's dtype, and the solver's PCG settings (SS, relative
+    exit 1e-4, 40 iterations): (S, gam, kw)."""
+    dt = X0.dtype
+    _, cost, solver = F.flagship(N=N, dtype=dt, device=dev,
                                  use_kernel_pcg=True, **F.PCG_KNOBS)
     kkt, o = solver.kkt, solver.options
     p = knot_params(cost.default_params._replace(xg=goals))
     blocks = kkt.form_blocks(X0, U0, x0s, p, ())
     S, gam, _, _ = kkt._schur_blocks_split(
-        blocks, torch.full((B,), o.rho_init, dtype=torch.float32, device=dev))
+        blocks, torch.full((B,), o.rho_init, dtype=dt, device=dev))
+    return S, gam, dict(precond="SS", tol=o.exit_tolerance_linSys,
+                        max_iter=o.max_iter_linSys, relative=o.pcg_relative)
+
+
+def insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
+    """K4 and its plain version on the flagship's cold-start Schur systems
+    (the PCG-SS flagship's first QP at rho = 1e-3, relative exit 1e-4, 40
+    iterations).  Those systems have condition ~1e7-1e9, so the check is
+    on residuals, not elements."""
+    S, gam, kw = cold_schur(torch, F, knot_params, X0, U0, x0s, goals, dev)
     ops = FP.pack_operands(S, gam, "SS")
-    kw = dict(precond="SS", tol=o.exit_tolerance_linSys,
-              max_iter=o.max_iter_linSys, relative=o.pcg_relative)
     S64 = BT.BlockTridiag(S.diag.double(), S.upper.double())
     g64 = gam.double().flatten(1)
     stats = {}
@@ -1765,7 +2232,7 @@ def insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
         res = (BT.btd_matvec(S64, x.double()).flatten(1) - g64)
         rel = res.norm(dim=1) / g64.norm(dim=1)
         stats[name] = (float(rel.median()), float(res.norm() / g64.norm()))
-        hist = torch.bincount(it.long(), minlength=o.max_iter_linSys + 1)
+        hist = torch.bincount(it.long(), minlength=kw["max_iter"] + 1)
         log(f"[in-situ] pcg {name}: |S x - gam|/|gam| per scenario median "
             f"{stats[name][0]:.3e} max {float(rel.max()):.3e}, whole batch "
             f"{stats[name][1]:.3e}; iteration counts "

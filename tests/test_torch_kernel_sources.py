@@ -113,12 +113,10 @@ def host_libs(tmp_path_factory):
             size.restype = ctypes.c_longlong
             libs[f"{key}_smem_elems"] = size
         if key == "pcg":
+            _build.bind_pcg_shapes(lib)
             libs["pcg_smem_elems"] = lib.tmr_pcg_smem_elems
-            lib.tmr_pcg_smem_elems.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.tmr_pcg_smem_elems.restype = ctypes.c_longlong
-            libs["pcg_uses_registers"] = lib.tmr_pcg_uses_registers
-            lib.tmr_pcg_uses_registers.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.tmr_pcg_uses_registers.restype = ctypes.c_int
+            libs["pcg_variant"] = lib.tmr_pcg_variant
+            libs["pcg_work_elems"] = lib.tmr_pcg_work_elems
     return libs
 
 
@@ -346,12 +344,8 @@ def test_host_compiled_pcg_matches_plain(precond, relative, N, host_libs):
     B, bs, max_iter = 4, 12, 60
     tol = 1e-14 if relative else 1e-10
     ops = _pcg_problem(B, N, bs, seed=N, precond=precond)
-    dx = torch.full_like(ops[3], float("nan"))
-    iters = torch.full((B,), -1, dtype=torch.int32)
-    rc = host_libs["pcg"](*(t.data_ptr() for t in ops), dx.data_ptr(),
-                          iters.data_ptr(), B, N, bs, int(precond == "SS"),
-                          int(relative), max_iter, tol, None)
-    assert rc == 0
+    dx, iters = _run_pcg(host_libs["pcg"], ops, precond, relative, max_iter,
+                         tol, host_libs)
     ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
                                         max_iter=max_iter, relative=relative)
     assert iters.tolist() == ref_iters.tolist()
@@ -361,14 +355,13 @@ def test_host_compiled_pcg_matches_plain(precond, relative, N, host_libs):
                                    atol=1e-10 * float(ref[k].abs().max()))
 
 
-def _run_pcg(fn, ops, precond, relative, max_iter, tol):
-    B, N, bs = ops[3].shape
-    dx = torch.full_like(ops[3], float("nan"))
-    iters = torch.full((B,), -1, dtype=torch.int32)
-    rc = fn(*(t.data_ptr() for t in ops), dx.data_ptr(), iters.data_ptr(), B,
-            N, bs, int(precond == "SS"), int(relative), max_iter, tol, None)
-    assert rc == 0
-    return dx, iters
+def _run_pcg(fn, ops, precond, relative, max_iter, tol, host_libs):
+    """One host entry (a g++ build of pcg.cu, or needed_ops.cpp's) through
+    the wrapper's own call (ops/fused_pcg.launch: codes, workspace, the
+    return code checked)."""
+    return FP.launch(fn, *ops, precond=precond, tol=tol, max_iter=max_iter,
+                     relative=relative,
+                     work_elems=host_libs["pcg_work_elems"])
 
 
 # (bs, N): each block size the register variant is built for (N = 1, odd
@@ -394,7 +387,7 @@ def test_host_compiled_pcg_variants_match_plain(bs, N, precond, order,
     tol = 1e-14 if relative else 1e-10
     ops = _pcg_problem(B, N, bs, seed=10 * bs + N, precond=precond, shift=0.5)
     dx, iters = _run_pcg(host_libs[order], ops, precond, relative, max_iter,
-                         tol)
+                         tol, host_libs)
     ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
                                         max_iter=max_iter, relative=relative)
     assert iters.tolist() == ref_iters.tolist()
@@ -403,7 +396,8 @@ def test_host_compiled_pcg_variants_match_plain(bs, N, precond, order,
         np.testing.assert_allclose(dx[k].numpy(), ref[k].numpy(), rtol=0,
                                    atol=1e-9 * float(ref[k].abs().max()))
     regs = bs % 2 == 0 and bs <= 14 and N * bs <= (1024 if bs <= 8 else 768)
-    assert host_libs["pcg_uses_registers"](N, bs) == int(regs)
+    assert FP.variant(N, bs, torch.float64, host_libs["pcg_variant"]) == (
+        0 if regs else 1)
 
 
 @pytest.mark.parametrize("N", [1, 7, 64])
@@ -416,7 +410,7 @@ def test_needed_pcg_computes_the_function(precond, relative, N, host_libs):
     tol = 1e-14 if relative else 1e-10
     ops = _pcg_problem(B, N, bs, seed=N + 5, precond=precond, shift=0.5)
     dx, iters = _run_pcg(host_libs["needed_pcg"], ops, precond, relative,
-                         max_iter, tol)
+                         max_iter, tol, host_libs)
     ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
                                         max_iter=max_iter, relative=relative)
     assert iters.tolist() == ref_iters.tolist()
@@ -454,18 +448,27 @@ def test_needed_pcg_count_follows_the_loop(ss):
 
 def test_host_compiled_pcg_shared_memory_size(host_libs):
     """The wrapper's size is the kernel's own formula (pcg.cu
-    tmr_pcg_smem_elems, read through the library), for the register
-    variant and the shared operator; the flagship fits in a tenth of the
-    first design's 95,364 bytes, and a shape over the limit raises."""
-    smem = host_libs["pcg_smem_elems"]
-    for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5), (157, 12)):
-        elems = smem(N, bs)
-        assert FP.smem_bytes(N, bs, torch.float64, smem) == 8 * elems
-        assert FP.smem_bytes(N, bs, torch.float32, smem) == 4 * elems
-    assert FP.smem_bytes(64, 12, torch.float32, smem) < 9_537
+    tmr_pcg_smem_elems, read through the library), for the variant each
+    shape takes in each dtype: the register variant (3 N bs + 4 bs values
+    and two reduction slots per warp), the shared operator (the system,
+    four vectors and the slots) and the global operator (the slots alone);
+    the flagship fits in a tenth of the first design's 95,364 bytes, and a
+    shape over one block's shared memory takes the global operator, whose
+    block fits."""
+    smem, var = host_libs["pcg_smem_elems"], host_libs["pcg_variant"]
+    for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5), (157, 12), (256, 12)):
+        for dtype in (torch.float32, torch.float64):
+            elems = smem(N, bs, dtype.itemsize)
+            assert FP.smem_bytes(N, bs, dtype, smem) == dtype.itemsize * elems
+            tri = bs * (bs + 1) // 2
+            assert elems == {
+                0: 3 * N * bs + 4 * bs + 64,
+                1: 2 * N * tri + N * bs * bs + 4 * N * bs + 64,
+                2: 64}[FP.variant(N, bs, dtype, var)]
+    assert FP.smem_bytes(64, 12, torch.float32, smem) == 9_664
     FP.check_fits(64, 12, torch.float64, smem)
-    with pytest.raises(ValueError, match=f"{FP.SMEM_LIMIT}-byte limit"):
-        FP.check_fits(4 * 64, 12, torch.float64, smem)
+    assert FP.variant(4 * 64, 12, torch.float64, var) == 2
+    FP.check_fits(4 * 64, 12, torch.float64, smem)
 
 
 def _first_design_elems(N, bs):
@@ -489,4 +492,5 @@ def test_pcg_accepts_every_shape_the_first_design_took(bs, dtype, host_libs):
         return
     for N in sorted({1, n_max // 2, n_max}):
         FP.check_fits(N, bs, dtype, smem)
-        assert smem(N, bs) <= _first_design_elems(N, bs) or N * bs <= 768
+        assert (smem(N, bs, dtype.itemsize) <= _first_design_elems(N, bs)
+                or N * bs <= 768)

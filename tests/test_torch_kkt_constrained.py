@@ -269,22 +269,26 @@ def test_kernel_pcg_sizes_on_the_generic_path(tmp_path):
     """K4 on the generic path's block size: the flagship's six torques as
     hard rows there make bs = 12 + 12 = 24, which K4's shared-operator
     variant holds up to N = 45 in f32 and N = 22 in f64 (its size formula,
-    tmr_pcg_smem_elems, from a g++ build of pcg.cu), bs = 18 up to 78 / 39
-    and bs = 30 up to 29 / 14; one row more raises, the flagship's N = 64
-    raises at bs = 24 and 30, and the condensed core (bs = 12) fits."""
+    from a g++ build of pcg.cu), bs = 18 up to 78 / 39 and bs = 30 up to
+    29 / 14; one block row more, and the flagship's N = 64 at bs = 24 and
+    30, take the global operator (the blocks in device memory), and
+    check_fits raises at none of them; the condensed core (bs = 12) takes
+    the register variant."""
     so = tmp_path / "libpcg.so"
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
                     "-fPIC", "-o", str(so), str(_build.CSRC / "pcg.cu")],
                    check=True)
-    elems = ctypes.CDLL(str(so)).tmr_pcg_smem_elems
-    elems.argtypes = [ctypes.c_int, ctypes.c_int]
-    elems.restype = ctypes.c_longlong
+    lib = ctypes.CDLL(str(so))
+    _build.bind_pcg_shapes(lib)
+    elems, var = lib.tmr_pcg_smem_elems, lib.tmr_pcg_variant
     for bs, dtype, n_max in ((24, torch.float32, 45), (24, torch.float64, 22),
                              (18, torch.float32, 78), (18, torch.float64, 39),
                              (30, torch.float32, 29), (30, torch.float64, 14)):
         FP.check_fits(n_max, bs, dtype, elems)
+        assert FP.variant(n_max, bs, dtype, var) == 1
         for n in {n_max + 1, max(n_max + 1, 64)}:
-            with pytest.raises(ValueError, match="shared memory"):
-                FP.check_fits(n, bs, dtype, elems)
-    FP.check_fits(64, 12, torch.float32, elems)
-    FP.check_fits(64, 12, torch.float64, elems)
+            FP.check_fits(n, bs, dtype, elems)
+            assert FP.variant(n, bs, dtype, var) == 2, (bs, dtype, n)
+    for dtype in (torch.float32, torch.float64):
+        FP.check_fits(64, 12, dtype, elems)
+        assert FP.variant(64, 12, dtype, var) == 0

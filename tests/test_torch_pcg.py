@@ -237,34 +237,56 @@ def test_fused_warm_start_converged_takes_no_step():
 
 
 @pytest.fixture(scope="module")
-def pcg_smem_elems(tmp_path_factory):
-    """K4's size formula (pcg.cu ``tmr_pcg_smem_elems``) from a g++ build
-    of the kernel's source: the wrapper reads it from the library."""
+def pcg_lib(tmp_path_factory):
+    """K4's shape entries (pcg.cu ``tmr_pcg_variant``, ``tmr_pcg_smem_elems``)
+    from a g++ build of the kernel's source: the wrapper reads them from
+    the library."""
     so = tmp_path_factory.mktemp("pcg_host") / "libpcg.so"
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
                     "-fPIC", "-o", str(so), str(_build.CSRC / "pcg.cu")],
                    check=True)
-    fn = ctypes.CDLL(str(so)).tmr_pcg_smem_elems
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_longlong
-    return fn
+    lib = ctypes.CDLL(str(so))
+    _build.bind_pcg_shapes(lib)
+    return lib
 
 
-def test_fused_shared_memory_limit_raises(pcg_smem_elems):
-    """A system too large for one thread block's shared memory raises a
-    ValueError naming the limit (never a fallback); the flagship fits, its
-    operator in registers and its block under 10 KB."""
-    FP.check_fits(64, 12, torch.float32, pcg_smem_elems)
-    FP.check_fits(64, 12, torch.float64, pcg_smem_elems)
-    assert FP.smem_bytes(64, 12, torch.float32, pcg_smem_elems) < 10_000
-    with pytest.raises(ValueError, match=f"{FP.SMEM_LIMIT}-byte limit"):
-        FP.check_fits(512, 12, torch.float32, pcg_smem_elems)
-    with pytest.raises(ValueError, match="byte limit"):
-        FP.check_fits(160, 12, torch.float64, pcg_smem_elems)
+def test_fused_shared_memory_limit_raises(pcg_lib):
+    """The variant boundaries at bs = 12: the register variant up to 768
+    rows of S (N = 64, the flagship, with its block under 10 KB), the
+    shared operator from N = 65 while its system and vectors fit one
+    block's 232,448 bytes (N = 166 in f32, 83 in f64), the global operator
+    from one block row more; check_fits raises at none of them, only past
+    K4's int index."""
+    var, smem = pcg_lib.tmr_pcg_variant, pcg_lib.tmr_pcg_smem_elems
+    assert FP.smem_bytes(64, 12, torch.float32, smem) < 10_000
+    for dtype, n_shared in ((torch.float32, 166), (torch.float64, 83)):
+        for N, want in ((64, 0), (65, 1), (n_shared, 1), (n_shared + 1, 2),
+                        (1024, 2)):
+            assert FP.variant(N, 12, dtype, var) == want, (dtype, N)
+            FP.check_fits(N, 12, dtype, smem)
+        assert FP.smem_bytes(n_shared, 12, dtype, smem) <= FP.SMEM_LIMIT
+        assert (dtype.itemsize * (2 * (n_shared + 1) * 78 + (n_shared + 1)
+                                  * 144 + 4 * 12 * (n_shared + 1) + 64)
+                > FP.SMEM_LIMIT)
+    with pytest.raises(ValueError, match="with an int"):
+        FP.check_fits(2 ** 31 // 144 + 1, 12, torch.float32, smem)
 
 
 def test_make_batched_pcg_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FP.make_batched_pcg(8, 4, "SS", precond_dtype=torch.bfloat16)
+    """An invalid preconditioner raises ValueError; a storage dtype K4
+    does not read, or one wider than the operands', TypeError (JAX would
+    promote the whole solve to it)."""
     with pytest.raises(ValueError, match="preconditioner"):
         FP.make_batched_pcg(8, 4, "0")
+    with pytest.raises(TypeError, match="precond_dtype"):
+        FP.make_batched_pcg(8, 4, "SS", precond_dtype=torch.int8)
+    with pytest.raises(TypeError, match="operator_dtype"):
+        FP.make_batched_pcg(8, 4, "SS", operator_dtype=torch.float8_e4m3fn)
+    diag, upper, b = _systems(1, 8, 4, seed=2)
+    S = tbtd.BlockTridiag(*_t(diag, upper, dtype=torch.float32))
+    bt = torch.tensor(b, dtype=torch.float32)
+    for kw in (dict(precond_dtype=torch.float64),
+               dict(operator_dtype=torch.float64)):
+        solve = FP.make_batched_pcg(8, 4, "SS", **kw)
+        with pytest.raises(TypeError, match="wider"):
+            solve(S, bt, torch.zeros_like(bt))

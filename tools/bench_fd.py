@@ -20,7 +20,9 @@ and 1,000; K3 at the main path's six (512, 1,536, 4,608, 32,256, 96,768,
 290,304).  K4 solves B = 1, 512 and 1,000 random SS systems (N = 64,
 bs = 12, 40 fixed iterations: the PCG-SS flagship's shape; another count
 with ``--pcg-iters``), each build held against ``pcg_fused_plain``
-(max|d|/max|ref|, equal iteration counts).  One JSON line per (dtype, L
+(max|d|/max|ref|, equal iteration counts); its baseline must have
+pcg.cu's entry with storage codes and a workspace (the layout since the
+global-operator variant).  One JSON line per (dtype, L
 or B), with the device-time ratio
 current / baseline (the means of each side's two turns), one line per
 build with its ``ptxas -v`` summary, and one line with the time of an
@@ -96,6 +98,8 @@ def _build_baseline(kernel: str, src_dir: pathlib.Path) -> ctypes.CDLL:
     for sfx in ("f32", "f64"):
         getattr(base, f"tmr_{kernel}_{sfx}").argtypes = _build.ARGTYPES[kernel]
         getattr(base, f"tmr_{kernel}_{sfx}").restype = ctypes.c_int
+    if kernel == "pcg":   # a pcg.cu with storage codes and a workspace
+        _build.bind_pcg_shapes(base)
     return base
 
 
@@ -142,17 +146,10 @@ def bench_pcg(base, iters: int) -> None:
         sfx = "f32" if dt == torch.float32 else "f64"
         fn_base = getattr(base, f"tmr_pcg_{sfx}")
 
-        def baseline(d, u, pd, r):
-            B, N, bs = r.shape
-            dx = torch.empty_like(r)
-            it = torch.empty((B,), dtype=torch.int32, device=r.device)
-            rc = fn_base(d.data_ptr(), u.data_ptr(), pd.data_ptr(),
-                         r.data_ptr(), dx.data_ptr(), it.data_ptr(), B, N, bs,
-                         1, 0, iters, 0.0,
-                         torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"baseline pcg failed: cudaError {rc}")
-            return dx, it
+        def baseline(*ops):
+            return FP.launch(fn_base, *ops, work_elems=base.tmr_pcg_work_elems,
+                             stream=torch.cuda.current_stream().cuda_stream,
+                             **kw)
 
         def current(*ops):
             return FP.pcg_fused_kernel(*ops, **kw)

@@ -25,12 +25,14 @@ the kernels to another formulation; ``utils`` has the SQP trace, the
 operation count and the timer.  ``parallel`` splits scenario batches and
 shards the Schur solve over the horizon across processes
 (``torch.distributed``: NCCL on cards, gloo on CPUs), and ``native`` is
-the robot-specialized C++ dynamics (g++, ctypes).  Every function takes
+the robot-specialized C++ dynamics (g++, ctypes).  ``examples`` holds
+the JAX package's example scripts, run as ``python -m
+trajoptmpcreference_tpu_torch.examples.<name>``.  Every function takes
 the scenario batch as an explicit leading dimension.  The package
 imports torch and numpy, never jax.
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from trajoptmpcreference_tpu_torch.models.robot import RobotModel
 from trajoptmpcreference_tpu_torch.models.urdf import parse_urdf, serial_arm

@@ -14,12 +14,15 @@ and the PCG kernel K4 (pcg)
 
     int tmr_pcg_<f32|f64>(const void* diag_p, const void* upper,
                           const void* pdiag_p, const void* r0, void* dx,
-                          void* iters, int B, int N, int bs, int ss,
-                          int relative, int max_iter, double tol,
-                          void* stream)
+                          void* iters, void* work, int B, int N, int bs,
+                          int dcode, int pcode, int ss, int relative,
+                          int max_iter, double tol, void* stream)
 
-Each returns ``cudaGetLastError()`` after its launch on ``stream``
-(``ARGTYPES`` binds each library's signature).
+Each returns ``cudaGetLastError()`` after its launch on ``stream``, and
+K4's -1 for a shape it cannot index (``ARGTYPES`` binds each library's
+signature).  K4's ``dcode`` / ``pcode`` say how the packed blocks and
+their inverses are stored (``ops/fused_pcg.STORAGE``) and ``work`` is its
+global operator's workspace (``tmr_pcg_work_elems``).
 
     python -m trajoptmpcreference_tpu_torch.kernels._build   # build, print ptxas
 """
@@ -45,7 +48,7 @@ ARGTYPES = {
     "fd": _LANES_ARGS,
     "fd_grad": _LANES_ARGS,
     "task_vec": _LANES_ARGS,
-    "pcg": [_P] * 6 + [_I] * 6 + [ctypes.c_double, _P],
+    "pcg": [_P] * 7 + [_I] * 8 + [ctypes.c_double, _P],
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -110,6 +113,18 @@ def ptxas_report(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
+def bind_pcg_shapes(lib: ctypes.CDLL) -> None:
+    """Bind K4's per-shape entries, each of (N, bs, bytes per value): the
+    variant, the shared memory per block and the workspace per scenario
+    (in values); and the storage decoder (pointer, index, code -> f64)."""
+    for fn, res in ((lib.tmr_pcg_variant, ctypes.c_int),
+                    (lib.tmr_pcg_smem_elems, ctypes.c_longlong),
+                    (lib.tmr_pcg_work_elems, ctypes.c_longlong)):
+        fn.argtypes, fn.restype = [_I, _I, _I], res
+    lib.tmr_pcg_stored.argtypes = [_P, ctypes.c_longlong, _I]
+    lib.tmr_pcg_stored.restype = ctypes.c_double
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built on first use)."""
     if name not in _loaded:
@@ -125,11 +140,8 @@ def library(name: str) -> ctypes.CDLL:
             size = getattr(lib, f"tmr_{name}_smem_elems")
             size.argtypes = [_I]
             size.restype = ctypes.c_longlong
-        if name == "pcg":   # per (N, bs): values per block, the variant
-            lib.tmr_pcg_smem_elems.argtypes = [_I, _I]
-            lib.tmr_pcg_smem_elems.restype = ctypes.c_longlong
-            lib.tmr_pcg_uses_registers.argtypes = [_I, _I]
-            lib.tmr_pcg_uses_registers.restype = ctypes.c_int
+        if name == "pcg":
+            bind_pcg_shapes(lib)
         _loaded[name] = lib
     return _loaded[name]
 

@@ -13,60 +13,91 @@
 // and each scenario's own iteration count (the TPU kernel reported its
 // 128-lane tile's count for every lane).
 //
+// Storage (pallas_pcg.py:365-368): diag_p and pdiag_p may each be stored
+// narrower than the operands (a runtime code per operand, Storage below:
+// f32 under f64 operands, bf16, f16); the kernel reads the narrow values
+// itself and computes in the operands' type.  When pdiag_p's storage is
+// not the operands' own, the loop exits on the true residual r'r (the
+// threshold from r0'r0), not on nu = r'Pinv r (:162-168, :335-336); r'r
+// rides the same shuffle tree as r's (two values a slot), so it adds no
+// barrier.
+//
 // What bounds it on the H100: neither bytes nor flops.  A scenario's
 // system (~94 KB in f32 at N = 64, bs = 12) is read once; an iteration
 // then does ~84 multiply-adds per row of S between two block sums, each a
 // chain of shuffles and a barrier, so the solve is bound by the latency
 // of the block's barriers and sums and by the instructions each
 // multiply-add costs (PERF.md, "Inside K4": the sums' shuffle trees and
-// the other barriers take about a fifth of the time each).  The design:
+// the other barriers take about a fifth of the time each).  Three
+// variants, chosen per (N, bs, type) by `variant`:
 //
-// * Registers (RegRow: the block sizes the plants give, bs = 2, 4, ...,
-//   14, and up to 1,024 rows of S, 768 from bs = 10): each thread owns R
-//   = 2 rows g = (k, i) and unpacks, once at load, row i of D_k, of U_k,
-//   of U_{k-1}^T and of P_k into registers, with its entries of x, r, p,
-//   s and Ap.  The block size is a template parameter, so the loops over
-//   a block row unroll and no packed index is computed inside the
-//   iteration.  Shared memory holds only what other threads read: p and s
-//   (a zero block on each side, so the first and last block rows take no
-//   branch), r (then the SS temporary t) and one reduction slot per warp:
-//   9,536 bytes at N = 64, bs = 12 in f32.  A block of 384 threads
-//   (bs >= 10; 512 below) holds one SM's registers, so one block runs per
-//   SM.
-// * Shared operator (ShRows: any other shape the size limit admits, bs
-//   read at run time): the packed blocks stay in shared memory, each
-//   thread walks rows tid, tid + nt, ...; x lives in dx.
+// * 0, registers (RegRow: the block sizes the plants give, bs = 2, 4,
+//   ..., 14, and up to 1,024 rows of S, 768 from bs = 10): each thread
+//   owns R = 2 rows g = (k, i) and unpacks, once at load, row i of D_k, of
+//   U_k, of U_{k-1}^T and of P_k into registers (converting narrow storage
+//   there, once), with its entries of x, r, p, s and Ap.  The block size
+//   is a template parameter, so the loops over a block row unroll and no
+//   packed index is computed inside the iteration.  Shared memory holds
+//   only what other threads read: p and s (a zero block on each side, so
+//   the first and last block rows take no branch), r (then the SS
+//   temporary t) and two reduction slots per warp: 9,664 bytes at N = 64,
+//   bs = 12 in f32.  A block of 384 threads (bs >= 10; 512 below) holds
+//   one SM's registers, so one block runs per SM.
+// * 1, shared operator (ShRows<T, false>: any other shape whose system
+//   and vectors fit one block's shared memory, bs read at run time): the
+//   packed blocks are copied into shared memory at load, converted there
+//   once to the operands' type (so the shared memory a shape needs, and
+//   the variant it takes, do not depend on the storage); each thread
+//   walks rows tid, tid + nt, ...; x lives in dx.
+// * 2, global operator (ShRows<T, true>: every shape the other two
+//   refuse): the same rows and phases, with the packed blocks left in
+//   device memory, read through the read-only path and converted at each
+//   use, and the vectors v, p, s, w in a workspace the wrapper allocates
+//   (4 N bs values a scenario); only the reduction slots are in shared
+//   memory.  __syncthreads() orders the block's device-memory writes as it
+//   orders its shared ones.  Each iteration reads the operator from L2 or
+//   device memory again: a cluster of blocks sharing a scenario in
+//   distributed shared memory is the Hopper design for these shapes
+//   (ROADMAP.md, queue 2).
 //
-// Both run one phase sequence (pcg_block) with a barrier after each phase
+// All run one phase sequence (pcg_block) with a barrier after each phase
 // and a block sum as one shuffle tree per warp, one barrier, and a second
 // tree over the warps' slots (every warp sums the slots in the same order,
 // so every thread holds the same value and takes the same exit).  Per
 // iteration: p (1), S p and p'Ap (1), x and r (1), then the
 // preconditioner: s = P r and r's (1) for J / BJ; for SS s0 = P r (1),
 // t = U s0_{k+1} + U^T s0_{k-1} (1), s = s0 - P t and r's (1).  4 barriers
-// with J / BJ, 6 with SS.  The phase
-// order alone keeps a reduction slot from being overwritten before every
-// warp has read it, so the slots need no barrier of their own.
+// with J / BJ, 6 with SS, with either exit.  The phase order alone keeps a
+// reduction slot from being overwritten before every warp has read it, so
+// the slots need no barrier of their own.
 //
 // The same source compiles as plain C++ (no __CUDACC__): each phase runs
 // for every thread of the block in turn (TMR_GROUP_REVERSE_TIDS: in
 // reverse, to catch a phase in which one thread reads what another
-// writes), the block sums follow the warps' shuffle trees, and a host
-// loop runs the scenarios one by one, so g++ checks the arithmetic and
-// the work partition on the CPU (tests/test_torch_kernel_sources.py).
+// writes), the block sums follow the warps' shuffle trees, 16-bit storage
+// is decoded bit by bit, and a host loop runs the scenarios one by one, so
+// g++ checks the arithmetic and the work partition on the CPU
+// (tests/test_torch_kernel_sources.py, tests/test_torch_pcg_large.py).
+#include <stddef.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 #ifdef __CUDACC__
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #define TMR_HD __host__ __device__ __forceinline__
 #else
-#include <stddef.h>
 #include <vector>
 #define TMR_HD inline
 #endif
 
 namespace tmr_pcg {
 
-constexpr int WARPS = 32;       // reduction slots: one per warp of a block
+constexpr int WARPS = 32;       // reduction slots: two per warp of a block
 constexpr int MAX_THREADS = 1024;
+constexpr size_t SMEM_LIMIT = 232448;   // one block's shared memory, bytes
+constexpr long long INDEX_LIMIT = 2147483647;   // the int row / block index
 
 template <typename T>
 TMR_HD T tabs(T v) { return v < T(0) ? -v : v; }
@@ -77,6 +108,81 @@ TMR_HD int sym(int i, int j) {
 }
 
 TMR_HD int round_warp(int n) { return (n + 31) / 32 * 32; }
+
+// ---- storage of the packed blocks -----------------------------------------
+// The code of diag_p's and of pdiag_p's storage (ops/fused_pcg.py
+// STORAGE): the operands' own type, f32 (under f64 operands), bf16, f16.
+enum Storage { ST_SAME = 0, ST_F32 = 1, ST_BF16 = 2, ST_F16 = 3 };
+
+template <typename T>
+TMR_HD T ldro(const T* p) {   // the read-only path on the card
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// bf16 is the top half of an f32: exact
+TMR_HD float bf16_float(uint16_t h) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float((unsigned)h << 16);
+#else
+  const uint32_t u = (uint32_t)h << 16;
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+#endif
+}
+
+// IEEE half to f32: exact (subnormal halves are normal f32s)
+TMR_HD float f16_float(uint16_t h) {
+#ifdef __CUDA_ARCH__
+  return __half2float(__ushort_as_half(h));
+#else
+  const uint32_t sign = (uint32_t)(h >> 15) << 31;
+  const int e = (h >> 10) & 0x1f;
+  uint32_t m = h & 0x3ffu, u;
+  if (e == 0x1f) {
+    u = sign | 0x7f800000u | (m << 13);   // inf, nan
+  } else if (e != 0) {
+    u = sign | ((uint32_t)(e - 15 + 127) << 23) | (m << 13);
+  } else if (m == 0) {
+    u = sign;
+  } else {   // subnormal: m 2^-24, shifted until its leading bit is bit 10
+    int s = 0;
+    while (!(m & 0x400u)) {
+      m <<= 1;
+      ++s;
+    }
+    u = sign | ((uint32_t)(127 - 14 - s) << 23) | ((m & 0x3ffu) << 13);
+  }
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+#endif
+}
+
+// element i of a packed operand stored as `code`, in the operands' type T
+template <typename T>
+TMR_HD T stored(const void* p, size_t i, int code) {
+  switch (code) {
+    case ST_F32: return T(ldro(static_cast<const float*>(p) + i));
+    case ST_BF16: return T(bf16_float(ldro(static_cast<const uint16_t*>(p) + i)));
+    case ST_F16: return T(f16_float(ldro(static_cast<const uint16_t*>(p) + i)));
+    default: return ldro(static_cast<const T*>(p) + i);
+  }
+}
+
+// a packed operand in its storage: indexed and offset like a pointer
+template <typename T>
+struct Stored {
+  const void* p;
+  size_t off;
+  int code;
+  TMR_HD T operator[](size_t i) const { return stored<T>(p, off + i, code); }
+  TMR_HD Stored operator+(size_t k) const { return Stored{p, off + k, code}; }
+};
 
 // ---- the shapes -----------------------------------------------------------
 // The register variant: the block sizes it is built for, its rows per
@@ -93,42 +199,66 @@ TMR_HD bool use_regs(int N, int bs) {
   return compiled_bs(bs) && (long long)N * bs <= reg_rows(bs);
 }
 
-// shared memory of one block, in values, for the variant that takes (N, bs)
-TMR_HD size_t smem_elems(int N, int bs) {
+// shared memory of the shared-operator variant, in values
+TMR_HD size_t shared_operator_elems(int N, int bs) {
   const size_t n = (size_t)N * bs, tri = (size_t)bs * (bs + 1) / 2;
-  if (use_regs(N, bs)) return 2 * (n + 2 * bs) + n + WARPS;
-  return 2 * N * tri + (size_t)N * bs * bs + 4 * n + WARPS;
+  return 2 * N * tri + (size_t)N * bs * bs + 4 * n + 2 * WARPS;
+}
+
+// 0 registers, 1 shared operator, 2 global operator, for values of
+// `item` bytes
+TMR_HD int variant(int N, int bs, int item) {
+  if (use_regs(N, bs)) return 0;
+  return shared_operator_elems(N, bs) * item <= SMEM_LIMIT ? 1 : 2;
+}
+
+// shared memory of one block, in values, for the variant that takes
+// (N, bs) in values of `item` bytes
+TMR_HD size_t smem_elems(int N, int bs, int item) {
+  switch (variant(N, bs, item)) {
+    case 0: return 3 * (size_t)N * bs + 4 * bs + 2 * WARPS;
+    case 1: return shared_operator_elems(N, bs);
+    default: return 2 * WARPS;
+  }
+}
+
+// the global operator's workspace per scenario, in values (v, p, s, w)
+TMR_HD size_t work_elems(int N, int bs, int item) {
+  return variant(N, bs, item) == 2 ? 4 * (size_t)N * bs : 0;
 }
 
 // the launch's operands, whole batch
 template <typename T>
 struct Args {
-  const T *D, *U, *P, *r0;
-  T* dx;
+  const void *D, *P;   // diag_p, pdiag_p in their storage (dcode, pcode)
+  const T *U, *r0;
+  T *dx, *work;
   int* iters;
-  int B, N, bs, ss, relative, max_iter;
+  int B, N, bs, dcode, pcode, ss, relative, max_iter;
   T tol;
 };
 
 // one scenario's slice of the operands
 template <typename T>
 struct Src {
-  const T *D, *U, *P, *r0;
-  T* dx;
+  Stored<T> D, P;
+  const T *U, *r0;
+  T *dx, *work;
 };
 
 template <typename T>
 TMR_HD Src<T> scenario(const Args<T>& a, size_t b) {
   const size_t n = (size_t)a.N * a.bs, nD = (size_t)a.N * (a.bs * (a.bs + 1) / 2);
-  return Src<T>{a.D + b * nD, a.U + b * n * a.bs, a.P + b * nD, a.r0 + b * n,
-                a.dx + b * n};
+  return Src<T>{Stored<T>{a.D, b * nD, a.dcode}, Stored<T>{a.P, b * nD, a.pcode},
+                a.U + b * n * a.bs, a.r0 + b * n, a.dx + b * n,
+                a.work ? a.work + b * 4 * n : nullptr};
 }
 
 // the block's shared state (the same for every thread)
 template <typename T>
 struct Team {
-  T *p, *s, *v, *w, *red;  // p, s; v: r (then t); w: Ap (then t), shared variant
-  T *D, *P, *U;            // the operator, shared variant
+  T *p, *s, *v, *w, *red;  // p, s; v: r (then t); w: Ap (then t), ShRows
+  T *D, *P, *U;            // the operator, shared-operator variant
   int N, bs, n, nt;
 };
 
@@ -153,12 +283,12 @@ struct RegRow {
   T x[R], r[R], ap[R], p[R], s[R], s0[R];
   int g[R], k[R];
   bool on[R];  // a row of S (the block's last warp may run past the end)
-  T part;
+  T part, part2;   // the thread's shares of r's (or p'Ap) and of r'r
 
   static TMR_HD int threads(int N, int) {
     return round_warp((N * BS + R - 1) / R);
   }
-  static TMR_HD Team<T> carve(T* m, int N, int, int nt) {
+  static TMR_HD Team<T> carve(T* m, const Src<T>&, int N, int, int nt) {
     Team<T> t{};
     t.N = N;
     t.bs = BS;
@@ -182,8 +312,8 @@ struct RegRow {
       on[m] = g[m] < tm.n;
       k[m] = on[m] ? g[m] / BS : 0;
       const int i = g[m] - k[m] * BS;
-      const T* Dk = src.D + k[m] * (BS * (BS + 1) / 2);
-      const T* Pk = src.P + k[m] * (BS * (BS + 1) / 2);
+      const Stored<T> Dk = src.D + k[m] * (BS * (BS + 1) / 2);
+      const Stored<T> Pk = src.P + k[m] * (BS * (BS + 1) / 2);
       const bool up = on[m] && k[m] + 1 < tm.N, dn = on[m] && k[m] > 0;
 #pragma unroll
       for (int j = 0; j < BS; ++j) {
@@ -196,7 +326,7 @@ struct RegRow {
       r[m] = on[m] ? src.r0[g[m]] : T(0);
       if (on[m]) tm.v[g[m]] = r[m];
     }
-    part = T(0);
+    part = part2 = T(0);
   }
   // p = s + beta p (beta = 0 and p = 0 at the first iteration)
   TMR_HD void pstep(const Team<T>& tm, T beta) {
@@ -226,15 +356,21 @@ struct RegRow {
       if (on[m]) tm.v[g[m]] = r[m];
     }
   }
-  // J / BJ: s = P r, and the thread's sum of r_g s_g
-  TMR_HD void pre_bj(const Team<T>& tm) {
+  // the thread's sums of r_g s_g and r_g r_g
+  TMR_HD void sums() {
 #pragma unroll
     for (int m = 0; m < R; ++m) {
-      s[m] = dot_row<BS>(P[m], tm.v + k[m] * BS);
       part = m == 0 ? r[m] * s[m] : part + r[m] * s[m];
+      part2 = m == 0 ? r[m] * r[m] : part2 + r[m] * r[m];
     }
   }
-  // SS: s0 = P r; t = U s0_{k+1} + U^T s0_{k-1}; s = s0 - P t, and r_g s_g
+  // J / BJ: s = P r
+  TMR_HD void pre_bj(const Team<T>& tm) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) s[m] = dot_row<BS>(P[m], tm.v + k[m] * BS);
+    sums();
+  }
+  // SS: s0 = P r; t = U s0_{k+1} + U^T s0_{k-1}; s = s0 - P t
   TMR_HD void pre_s0(const Team<T>& tm) {
 #pragma unroll
     for (int m = 0; m < R; ++m) {
@@ -252,10 +388,9 @@ struct RegRow {
   }
   TMR_HD void pre_ss(const Team<T>& tm) {
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
+    for (int m = 0; m < R; ++m)
       s[m] = s0[m] - dot_row<BS>(P[m], tm.v + k[m] * BS);
-      part = m == 0 ? r[m] * s[m] : part + r[m] * s[m];
-    }
+    sums();
   }
   TMR_HD void store(const Team<T>&, const Src<T>& src) {
 #pragma unroll
@@ -264,10 +399,11 @@ struct RegRow {
   }
 };
 
-// ---- the shared-operator variant: rows tid, tid + nt, ... of S -----------
-// (D v)_i for one packed symmetric block, from the first term
-template <typename T>
-TMR_HD T sym_row(const T* D, const T* v, int i, int bs) {
+// ---- the shared- and global-operator variants: rows tid, tid + nt, ... ----
+// (D v)_i for one packed symmetric block D (a pointer into shared memory,
+// or a Stored operand in device memory), from the first term
+template <typename T, typename A>
+TMR_HD T sym_row(const A& D, const T* v, int i, int bs) {
   const int base = i * (i + 1) / 2;
   T acc = D[base] * v[0];
   for (int j = 1; j <= i; ++j) acc += D[base + j] * v[j];
@@ -276,72 +412,119 @@ TMR_HD T sym_row(const T* D, const T* v, int i, int bs) {
 }
 
 // (U v)_i and (U^T v)_i for one row-major bs x bs block U
-template <typename T>
-TMR_HD T up_row(const T* U, const T* v, int i, int bs) {
+template <typename T, typename A>
+TMR_HD T up_row(const A& U, const T* v, int i, int bs) {
   T acc = U[i * bs] * v[0];
   for (int j = 1; j < bs; ++j) acc += U[i * bs + j] * v[j];
   return acc;
 }
 
-template <typename T>
-TMR_HD T upT_row(const T* U, const T* v, int i, int bs) {
+template <typename T, typename A>
+TMR_HD T upT_row(const A& U, const T* v, int i, int bs) {
   T acc = U[i] * v[0];
   for (int j = 1; j < bs; ++j) acc += U[j * bs + i] * v[j];
   return acc;
 }
 
+// device memory in the operands' type, through the read-only path
 template <typename T>
+struct ReadOnly {
+  const T* p;
+  TMR_HD T operator[](size_t i) const { return ldro(p + i); }
+  TMR_HD ReadOnly operator+(size_t k) const { return ReadOnly{p + k}; }
+};
+
+// how the variant reads its operator: plain pointers into shared memory,
+// or device memory (the packed blocks in their storage)
+template <typename T, bool GLOBAL>
+struct OperatorOf {
+  typedef const T* Packed;
+  typedef const T* Upper;
+};
+template <typename T>
+struct OperatorOf<T, true> {
+  typedef Stored<T> Packed;
+  typedef ReadOnly<T> Upper;
+};
+
+template <typename T, bool GLOBAL>
 struct ShRows {
   int tid;
-  T part;
+  T part, part2;
   T* x;  // the scenario's dx: only the thread of row g reads or writes x_g
+  typename OperatorOf<T, GLOBAL>::Packed D, P;
+  typename OperatorOf<T, GLOBAL>::Upper U;
 
   static TMR_HD int threads(int N, int bs) {
     const int n = round_warp(N * bs);
     return n < MAX_THREADS ? n : MAX_THREADS;
   }
-  static TMR_HD Team<T> carve(T* m, int N, int bs, int nt) {
+  static TMR_HD Team<T> carve(T* m, const Src<T>& src, int N, int bs,
+                              int nt) {
     Team<T> t{};
     t.N = N;
     t.bs = bs;
     t.n = N * bs;
     t.nt = nt;
-    const size_t tri = (size_t)bs * (bs + 1) / 2;
-    t.D = m;
-    t.P = t.D + N * tri;
-    t.U = t.P + N * tri;
-    t.v = t.U + (size_t)N * bs * bs;
+    T* vec = src.work;
+    if (!GLOBAL) {
+      const size_t tri = (size_t)bs * (bs + 1) / 2;
+      t.D = m;
+      t.P = t.D + N * tri;
+      t.U = t.P + N * tri;
+      vec = t.U + (size_t)N * bs * bs;
+      m = vec + 4 * t.n;
+    }
+    t.v = vec;
     t.p = t.v + t.n;
     t.s = t.p + t.n;
     t.w = t.s + t.n;
-    t.red = t.w + t.n;
+    t.red = m;
     return t;
   }
 
   // row (k, i) of U_k v_{k+1} + U_{k-1}^T v_{k-1}
-  static TMR_HD T off(const Team<T>& tm, const T* v, int k, int i) {
+  TMR_HD T off(const Team<T>& tm, const T* v, int k, int i) const {
     const int bs = tm.bs, bb = bs * bs;
     T acc = T(0);
-    if (k + 1 < tm.N) acc = up_row(tm.U + k * bb, v + (k + 1) * bs, i, bs);
-    if (k > 0) acc += upT_row(tm.U + (k - 1) * bb, v + (k - 1) * bs, i, bs);
+    if (k + 1 < tm.N) acc = up_row(U + (size_t)k * bb, v + (k + 1) * bs, i, bs);
+    if (k > 0) acc += upT_row(U + (size_t)(k - 1) * bb, v + (k - 1) * bs, i, bs);
     return acc;
   }
   TMR_HD T prow(const Team<T>& tm, const T* v, int g) const {
     const int k = g / tm.bs;
-    return sym_row(tm.P + k * (tm.bs * (tm.bs + 1) / 2), v + k * tm.bs,
+    return sym_row(P + (size_t)k * (tm.bs * (tm.bs + 1) / 2), v + k * tm.bs,
                    g - k * tm.bs, tm.bs);
   }
 
-  TMR_HD void load(const Team<T>& tm, const Src<T>& src, int t) {
-    tid = t;
-    part = T(0);
-    x = src.dx;
+  // the operator where the variant reads it: in device memory as it is,
+  // or copied into shared memory, converted once
+  template <bool G = GLOBAL>
+  TMR_HD typename std::enable_if<G>::type place_operator(const Team<T>&,
+                                                         const Src<T>& src) {
+    D = src.D;
+    P = src.P;
+    U = ReadOnly<T>{src.U};
+  }
+  template <bool G = GLOBAL>
+  TMR_HD typename std::enable_if<!G>::type place_operator(const Team<T>& tm,
+                                                          const Src<T>& src) {
     const int nD = tm.N * (tm.bs * (tm.bs + 1) / 2), nU = tm.N * tm.bs * tm.bs;
     for (int e = tid; e < nD; e += tm.nt) {
       tm.D[e] = src.D[e];
       tm.P[e] = src.P[e];
     }
     for (int e = tid; e < nU; e += tm.nt) tm.U[e] = src.U[e];
+    D = tm.D;
+    P = tm.P;
+    U = tm.U;
+  }
+
+  TMR_HD void load(const Team<T>& tm, const Src<T>& src, int t) {
+    tid = t;
+    part = part2 = T(0);
+    x = src.dx;
+    place_operator(tm, src);
     for (int g = tid; g < tm.n; g += tm.nt) {
       tm.v[g] = src.r0[g];
       tm.p[g] = T(0);
@@ -355,8 +538,8 @@ struct ShRows {
     part = T(0);
     for (int g = tid; g < tm.n; g += tm.nt) {
       const int k = g / tm.bs, i = g - k * tm.bs;
-      const T a = sym_row(tm.D + k * (tm.bs * (tm.bs + 1) / 2), tm.p + k * tm.bs,
-                          i, tm.bs);
+      const T a = sym_row(D + (size_t)k * (tm.bs * (tm.bs + 1) / 2),
+                          tm.p + k * tm.bs, i, tm.bs);
       tm.w[g] = a + off(tm, tm.p, k, i);
       part += tm.p[g] * tm.w[g];
     }
@@ -368,10 +551,11 @@ struct ShRows {
     }
   }
   TMR_HD void pre_bj(const Team<T>& tm) {
-    part = T(0);
+    part = part2 = T(0);
     for (int g = tid; g < tm.n; g += tm.nt) {
       tm.s[g] = prow(tm, tm.v, g);
       part += tm.v[g] * tm.s[g];
+      part2 += tm.v[g] * tm.v[g];
     }
   }
   TMR_HD void pre_s0(const Team<T>& tm) {
@@ -384,10 +568,11 @@ struct ShRows {
     }
   }
   TMR_HD void pre_ss(const Team<T>& tm) {
-    part = T(0);
+    part = part2 = T(0);
     for (int g = tid; g < tm.n; g += tm.nt) {
       tm.s[g] -= prow(tm, tm.w, g);
       part += tm.v[g] * tm.s[g];
+      part2 += tm.v[g] * tm.v[g];
     }
   }
   TMR_HD void store(const Team<T>&, const Src<T>&) {}  // x is dx already
@@ -402,8 +587,9 @@ __device__ __forceinline__ T warp_sum(T v) {  // lane 0 holds the sum
   return v;
 }
 
-// the block's sum of v: a tree per warp, one barrier, a tree over the
-// warps' slots (every warp in the same order), broadcast from lane 0
+// the block's sums of a (and, with two, of b): a tree per warp, one
+// barrier, a tree over the warps' slots (every warp in the same order),
+// broadcast from lane 0
 template <typename T>
 __device__ __forceinline__ T team_sum(T v, const Team<T>& tm) {
   const int lane = threadIdx.x & 31;
@@ -412,6 +598,21 @@ __device__ __forceinline__ T team_sum(T v, const Team<T>& tm) {
   __syncthreads();
   v = lane < (tm.nt >> 5) ? tm.red[lane] : T(0);
   return __shfl_sync(0xffffffffu, warp_sum(v), 0);
+}
+
+template <typename T>
+__device__ __forceinline__ void team_sum2(T& a, T& b, const Team<T>& tm) {
+  const int lane = threadIdx.x & 31;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) {
+    tm.red[threadIdx.x >> 5] = a;
+    tm.red[WARPS + (threadIdx.x >> 5)] = b;
+  }
+  __syncthreads();
+  const bool in = lane < (tm.nt >> 5);
+  a = __shfl_sync(0xffffffffu, warp_sum(in ? tm.red[lane] : T(0)), 0);
+  b = __shfl_sync(0xffffffffu, warp_sum(in ? tm.red[WARPS + lane] : T(0)), 0);
 }
 
 #define TMR_OWN 0
@@ -429,6 +630,15 @@ __device__ __forceinline__ T team_sum(T v, const Team<T>& tm) {
     CALL;                             \
     OUT = team_sum(th[0].part, tm);   \
   } while (0)
+#define TMR_TEAM_SUM2_PHASE(CALL, OUT, OUT2) \
+  do {                                       \
+    const int tid = threadIdx.x;             \
+    (void)tid;                               \
+    CALL;                                    \
+    OUT = th[0].part;                        \
+    OUT2 = th[0].part2;                      \
+    team_sum2(OUT, OUT2, tm);                \
+  } while (0)
 #else
 // the card's two trees, lane 0's sums, over the threads' partial sums
 template <typename T>
@@ -438,13 +648,12 @@ T tree32(T* v) {
   return v[0];
 }
 
-template <class Th>
-auto host_team_sum(const Th* th, int nt) -> decltype(th[0].part) {
-  using T = decltype(th[0].part);
+template <class Th, typename T>
+T host_team_sum(const Th* th, int nt, T Th::*field) {
   T slot[32], v[32];
   for (int w = 0; w < 32; ++w) {
     if (w < nt / 32) {
-      for (int l = 0; l < 32; ++l) v[l] = th[w * 32 + l].part;
+      for (int l = 0; l < 32; ++l) v[l] = th[w * 32 + l].*field;
       slot[w] = tree32(v);
     } else {
       slot[w] = T(0);
@@ -463,41 +672,55 @@ auto host_team_sum(const Th* th, int nt) -> decltype(th[0].part) {
   do {                       \
     TMR_TEAM_FOR CALL;       \
   } while (0)
-#define TMR_TEAM_SUM_PHASE(CALL, OUT)   \
-  do {                                  \
-    TMR_TEAM_FOR CALL;                  \
-    OUT = host_team_sum(th, tm.nt);     \
+#define TMR_TEAM_SUM_PHASE(CALL, OUT)            \
+  do {                                           \
+    TMR_TEAM_FOR CALL;                           \
+    OUT = host_team_sum(th, tm.nt, &Th::part);   \
+  } while (0)
+#define TMR_TEAM_SUM2_PHASE(CALL, OUT, OUT2)     \
+  do {                                           \
+    TMR_TEAM_FOR CALL;                           \
+    OUT = host_team_sum(th, tm.nt, &Th::part);   \
+    OUT2 = host_team_sum(th, tm.nt, &Th::part2); \
   } while (0)
 #endif
 
-// s = Pinv r, and the block's sum of r's
+// s = Pinv r, and the block's sum of r's (nu); with `rr`, r'r beside it
+// in the same tree
 template <typename T, class Th>
-TMR_HD T apply_P(Th* th, const Team<T>& tm, bool ss) {
-  T nu;
+TMR_HD void apply_P(Th* th, const Team<T>& tm, bool ss, bool rr, T& nu,
+                    T& rsq) {
   if (ss) {
     TMR_TEAM_PHASE(th[TMR_OWN].pre_s0(tm));
     TMR_TEAM_PHASE(th[TMR_OWN].pre_t(tm));
-    TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_ss(tm), nu);
+    if (rr)
+      TMR_TEAM_SUM2_PHASE(th[TMR_OWN].pre_ss(tm), nu, rsq);
+    else
+      TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_ss(tm), nu);
+  } else if (rr) {
+    TMR_TEAM_SUM2_PHASE(th[TMR_OWN].pre_bj(tm), nu, rsq);
   } else {
     TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_bj(tm), nu);
   }
-  return nu;
 }
 
 // The PCG of one scenario (pcg_fused_plain's loop); every thread of the
-// block runs it.  Returns the number of iterations taken.
+// block runs it.  With `rr` (a preconditioner stored narrower than the
+// operands) the exit metric is r'r, else nu.  Returns the iterations taken.
 template <typename T, class Th>
 TMR_HD int pcg_block(Th* th, const Team<T>& tm, const Src<T>& src, bool ss,
-                     bool relative, int max_iter, T tol) {
+                     bool rr, bool relative, int max_iter, T tol) {
   TMR_TEAM_PHASE(th[TMR_OWN].load(tm, src, tid));
-  T nu = apply_P(th, tm, ss);
+  T nu, rsq = T(0);
+  apply_P(th, tm, ss, rr, nu, rsq);
+  const T m0 = rr ? rsq : nu;
   T thr = tol;
   if (relative) {
-    thr = tol * tabs(nu);
+    thr = tol * tabs(m0);
     if (thr < T(1e-30)) thr = T(1e-30);
   }
   int it = 0;
-  if (!(tabs(nu) <= thr)) {  // converged warm start: no pAp = 0 divide
+  if (!(tabs(m0) <= thr)) {  // converged warm start: no pAp = 0 divide
     T beta = T(0);
     while (it < max_iter) {
       TMR_TEAM_PHASE(th[TMR_OWN].pstep(tm, beta));
@@ -505,10 +728,11 @@ TMR_HD int pcg_block(Th* th, const Team<T>& tm, const Src<T>& src, bool ss,
       TMR_TEAM_SUM_PHASE(th[TMR_OWN].matvec(tm), pAp);
       const T alpha = nu / (pAp != T(0) ? pAp : T(1));
       TMR_TEAM_PHASE(th[TMR_OWN].update(tm, alpha));
-      const T nu_new = apply_P(th, tm, ss);
+      T nu_new;
+      apply_P(th, tm, ss, rr, nu_new, rsq);
       ++it;
-      if (tabs(nu_new) <= thr) break;  // S is negative definite on the
-      beta = nu_new / nu;              // flagship: nu and pAp keep any sign
+      if (tabs(rr ? rsq : nu_new) <= thr) break;  // S is negative definite
+      beta = nu_new / nu;           // on the flagship: nu and pAp keep any sign
       nu = nu_new;
     }
   }
@@ -520,10 +744,11 @@ TMR_HD int pcg_block(Th* th, const Team<T>& tm, const Src<T>& src, bool ss,
 template <typename T, class Th>
 __device__ __forceinline__ void run_block(const Args<T>& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Team<T> tm = Th::carve(reinterpret_cast<T*>(smem_raw), a.N, a.bs,
-                               (int)blockDim.x);
+  const Src<T> src = scenario(a, blockIdx.x);
+  const Team<T> tm = Th::carve(reinterpret_cast<T*>(smem_raw), src, a.N,
+                               a.bs, (int)blockDim.x);
   Th th[1];
-  const int it = pcg_block<T>(th, tm, scenario(a, blockIdx.x), a.ss != 0,
+  const int it = pcg_block<T>(th, tm, src, a.ss != 0, a.pcode != ST_SAME,
                               a.relative != 0, a.max_iter, a.tol);
   if (threadIdx.x == 0) a.iters[blockIdx.x] = it;
 }
@@ -536,12 +761,17 @@ pcg_regs(const Args<T> a) {
 
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, 1) pcg_shared(const Args<T> a) {
-  run_block<T, ShRows<T>>(a);
+  run_block<T, ShRows<T, false>>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS, 1) pcg_global(const Args<T> a) {
+  run_block<T, ShRows<T, true>>(a);
 }
 
 template <typename T, class Th>
 int launch(void (*kernel)(const Args<T>), const Args<T>& a, void* stream) {
-  const size_t bytes = smem_elems(a.N, a.bs) * sizeof(T);
+  const size_t bytes = smem_elems(a.N, a.bs, sizeof(T)) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
@@ -557,67 +787,96 @@ int launch(void (*kernel)(const Args<T>), const Args<T>& a, void* stream) {
 template <typename T, class Th>
 int run_host(const Args<T>& a) {
   const int nt = Th::threads(a.N, a.bs);
-  std::vector<T> mem(smem_elems(a.N, a.bs));
+  std::vector<T> mem(smem_elems(a.N, a.bs, sizeof(T)));
   std::vector<Th> th(nt);
-  const Team<T> tm = Th::carve(mem.data(), a.N, a.bs, nt);
-  for (int b = 0; b < a.B; ++b)
-    a.iters[b] = pcg_block<T>(th.data(), tm, scenario(a, b), a.ss != 0,
-                              a.relative != 0, a.max_iter, a.tol);
+  for (int b = 0; b < a.B; ++b) {
+    const Src<T> src = scenario(a, b);
+    const Team<T> tm = Th::carve(mem.data(), src, a.N, a.bs, nt);
+    a.iters[b] = pcg_block<T>(th.data(), tm, src, a.ss != 0,
+                              a.pcode != ST_SAME, a.relative != 0,
+                              a.max_iter, a.tol);
+  }
   return 0;
 }
 
 #define TMR_PCG_REGS(BS) return run_host<T, RegRow<T, BS>>(a)
 #endif
 
-// the register variant where the shape takes it, else the shared operator
+// the variant that takes (N, bs) in T; -1 for a shape or a workspace the
+// kernel cannot take
 template <typename T>
 int launch_pcg(const void* diag_p, const void* upper, const void* pdiag_p,
-               const void* r0, void* dx, void* iters, int B, int N, int bs,
-               int ss, int relative, int max_iter, double tol, void* stream) {
-  const Args<T> a{(const T*)diag_p, (const T*)upper, (const T*)pdiag_p,
-                  (const T*)r0, (T*)dx, (int*)iters, B, N, bs, ss, relative,
-                  max_iter, (T)tol};
+               const void* r0, void* dx, void* iters, void* work, int B,
+               int N, int bs, int dcode, int pcode, int ss, int relative,
+               int max_iter, double tol, void* stream) {
+  const Args<T> a{diag_p, pdiag_p, (const T*)upper, (const T*)r0, (T*)dx,
+                  (T*)work, (int*)iters, B, N, bs, dcode, pcode, ss,
+                  relative, max_iter, (T)tol};
   (void)stream;
-  if (use_regs(N, bs)) {
-    switch (bs) {
-      case 2: TMR_PCG_REGS(2);
-      case 4: TMR_PCG_REGS(4);
-      case 6: TMR_PCG_REGS(6);
-      case 8: TMR_PCG_REGS(8);
-      case 10: TMR_PCG_REGS(10);
-      case 12: TMR_PCG_REGS(12);
-      case 14: TMR_PCG_REGS(14);
-    }
-  }
+  if ((long long)N * bs * bs > INDEX_LIMIT) return -1;
+  switch (variant(N, bs, sizeof(T))) {
+    case 0:
+      switch (bs) {
+        case 2: TMR_PCG_REGS(2);
+        case 4: TMR_PCG_REGS(4);
+        case 6: TMR_PCG_REGS(6);
+        case 8: TMR_PCG_REGS(8);
+        case 10: TMR_PCG_REGS(10);
+        case 12: TMR_PCG_REGS(12);
+        case 14: TMR_PCG_REGS(14);
+      }
+      return -1;
+    case 1:
 #ifdef __CUDACC__
-  return launch<T, ShRows<T>>(pcg_shared<T>, a, stream);
+      return launch<T, ShRows<T, false>>(pcg_shared<T>, a, stream);
 #else
-  return run_host<T, ShRows<T>>(a);
+      return run_host<T, ShRows<T, false>>(a);
 #endif
+    default:
+      if (work == nullptr && B > 0) return -1;
+#ifdef __CUDACC__
+      return launch<T, ShRows<T, true>>(pcg_global<T>, a, stream);
+#else
+      return run_host<T, ShRows<T, true>>(a);
+#endif
+  }
 }
 #undef TMR_PCG_REGS
 
 }  // namespace tmr_pcg
 
-#define TMR_PCG_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* diag_p, const void* upper,                 \
-                      const void* pdiag_p, const void* r0, void* dx,         \
-                      void* iters, int B, int N, int bs, int ss,             \
-                      int relative, int max_iter, double tol, void* stream) { \
-    return tmr_pcg::launch_pcg<T>(diag_p, upper, pdiag_p, r0, dx, iters, B,  \
-                                  N, bs, ss, relative, max_iter, tol,        \
-                                  stream);                                   \
+#define TMR_PCG_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const void* diag_p, const void* upper,                  \
+                      const void* pdiag_p, const void* r0, void* dx,          \
+                      void* iters, void* work, int B, int N, int bs,          \
+                      int dcode, int pcode, int ss, int relative,             \
+                      int max_iter, double tol, void* stream) {               \
+    return tmr_pcg::launch_pcg<T>(diag_p, upper, pdiag_p, r0, dx, iters,      \
+                                  work, B, N, bs, dcode, pcode, ss, relative, \
+                                  max_iter, tol, stream);                     \
   }
 TMR_PCG_ENTRY(tmr_pcg_f32, float)
 TMR_PCG_ENTRY(tmr_pcg_f64, double)
 #undef TMR_PCG_ENTRY
 
-// shared memory of one block, in values (ops/fused_pcg.smem_bytes)
-extern "C" long long tmr_pcg_smem_elems(int N, int bs) {
-  return (long long)tmr_pcg::smem_elems(N, bs);
+// the variant that takes (N, bs) in values of `item` bytes: 0 registers,
+// 1 shared operator, 2 global operator (ops/fused_pcg.variant)
+extern "C" int tmr_pcg_variant(int N, int bs, int item) {
+  return tmr_pcg::variant(N, bs, item);
 }
 
-// 1 when (N, bs) runs the register variant, 0 the shared operator
-extern "C" int tmr_pcg_uses_registers(int N, int bs) {
-  return (int)tmr_pcg::use_regs(N, bs);
+// shared memory of one block, in values (ops/fused_pcg.smem_bytes)
+extern "C" long long tmr_pcg_smem_elems(int N, int bs, int item) {
+  return (long long)tmr_pcg::smem_elems(N, bs, item);
+}
+
+// the workspace of one scenario, in values (the global operator's vectors)
+extern "C" long long tmr_pcg_work_elems(int N, int bs, int item) {
+  return (long long)tmr_pcg::work_elems(N, bs, item);
+}
+
+// element i of a packed operand stored as `code`, widened to f64 (the
+// storage decoders, held to PyTorch's casts by the tests)
+extern "C" double tmr_pcg_stored(const void* p, long long i, int code) {
+  return tmr_pcg::stored<double>(p, (size_t)i, code);
 }

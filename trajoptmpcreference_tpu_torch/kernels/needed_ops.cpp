@@ -789,11 +789,14 @@ TMR_NEED_ENTRY(need_fd_grad_f64, tmr_need::FD_GRAD)
 TMR_NEED_ENTRY(need_task_vec_f64, tmr_need::TASK_VEC)
 #undef TMR_NEED_ENTRY
 
-// K4's values in f64, with the fused PCG's signature
+// K4's values in f64, with the fused PCG's signature; the blocks in the
+// operands' own storage only (codes 0: the exit on nu)
 extern "C" int need_pcg_f64(const void* diag_p, const void* upper,
                             const void* pdiag_p, const void* r0, void* dx,
-                            void* iters, int B, int N, int bs, int ss,
-                            int relative, int max_iter, double tol, void*) {
+                            void* iters, void*, int B, int N, int bs,
+                            int dcode, int pcode, int ss, int relative,
+                            int max_iter, double tol, void*) {
+  if (dcode != 0 || pcode != 0) return -1;
   return tmr_need::pcg<double>((const double*)diag_p, (const double*)upper,
                                (const double*)pdiag_p, (const double*)r0,
                                (double*)dx, (int*)iters, B, N, bs, ss,

@@ -94,12 +94,13 @@ extern "C" long long count_pcg(const double* d, const double* up,
   const size_t nD = (size_t)B * N * bs * (bs + 1) / 2,
                nU = (size_t)B * N * bs * bs, nR = (size_t)B * N * bs;
   std::vector<Num> D = nums(d, nD), UP = nums(up, nU), PD = nums(pd, nD),
-                   R0 = nums(r0, nR), DX(nR);
+                   R0 = nums(r0, nR), DX(nR),
+                   W((size_t)B * tmr_pcg::work_elems(N, bs, sizeof(Num)));
   std::vector<int> it(B);
   tmr_count::ops = 0;
   tmr_pcg::launch_pcg<Num>(D.data(), UP.data(), PD.data(), R0.data(),
-                           DX.data(), it.data(), B, N, bs, ss, relative,
-                           max_iter, tol, nullptr);
+                           DX.data(), it.data(), W.data(), B, N, bs, 0, 0,
+                           ss, relative, max_iter, tol, nullptr);
   return tmr_count::ops;
 }
 """

@@ -2,10 +2,17 @@
 
 Counterpart of trajoptmpcreference_tpu/ops/pallas_pcg.py.  The whole
 Krylov loop of a scenario runs inside one CUDA thread block
-(kernels/csrc/pcg.cu), two rows of the Schur system per thread with
-their rows of the operator and the preconditioner in registers (or, for
-shapes over the register budget, in shared memory), where the XLA-style
-``btridiag.pcg`` launches a dozen small ops per iteration.
+(kernels/csrc/pcg.cu), where the XLA-style ``btridiag.pcg`` launches a
+dozen small ops per iteration.  Three variants (``variant``): two rows of
+the Schur system per thread with their rows of the operator and the
+preconditioner in registers; for other shapes, the operator in shared
+memory; for shapes over one block's shared memory, the operator in device
+memory and the vectors in a workspace.
+
+The packed diagonal blocks and their inverses may be stored narrower than
+the operands (``make_batched_pcg``'s ``operator_dtype`` and
+``precond_dtype``: bfloat16, float16, float32 under float64); K4 reads
+them so and computes in the operands' dtype.
 
 Layout, batch-major so one block reads one contiguous scenario:
 
@@ -28,7 +35,6 @@ every lane; K4 and its plain version report each scenario's own count
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import numpy as np
 import torch
@@ -67,26 +73,49 @@ def _unpack_sym(packed, bs: int):
     return packed[..., idx].reshape(packed.shape[:-1] + (bs, bs))
 
 
+# the storage of the packed diagonal blocks and their inverses, as pcg.cu
+# reads it (Storage): a dtype the same as the operands' is code 0
+STORAGE = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+VARIANTS = ("registers", "shared operator", "global operator")
+# K4 indexes a scenario's upper blocks with an int
+INDEX_LIMIT = 2 ** 31 - 1
+
+
+def _pcg_library():
+    from trajoptmpcreference_tpu_torch.kernels import _build
+    return _build.library("pcg")
+
+
+def variant(N: int, bs: int, dtype: torch.dtype, fn=None) -> int:
+    """The K4 variant that takes (N, bs) in ``dtype`` (pcg.cu
+    ``tmr_pcg_variant``, from the built library unless another build's
+    entry is given): 0 registers, 1 shared operator, 2 global operator."""
+    fn = fn or _pcg_library().tmr_pcg_variant
+    return int(fn(N, bs, dtype.itemsize))
+
+
 def smem_bytes(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> int:
     """Dynamic shared memory of K4's block for one scenario: the kernel's
     own formula, ``tmr_pcg_smem_elems`` (values per block, for the variant
-    that takes (N, bs)), from the built library unless another build's
-    entry is given."""
-    if smem_elems is None:
-        from trajoptmpcreference_tpu_torch.kernels import _build
-        smem_elems = _build.library("pcg").tmr_pcg_smem_elems
-    return dtype.itemsize * int(smem_elems(N, bs))
+    that takes (N, bs) in ``dtype``), from the built library unless another
+    build's entry is given."""
+    smem_elems = smem_elems or _pcg_library().tmr_pcg_smem_elems
+    return dtype.itemsize * int(smem_elems(N, bs, dtype.itemsize))
 
 
 def check_fits(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> None:
-    """Raise ValueError when K4's block for one scenario does not fit the
-    shared memory of one thread block."""
+    """Raise ValueError for a shape K4 cannot address: a scenario's upper
+    blocks past its int index.  Every other shape takes a variant (the
+    global operator past one block's shared memory), whose block this
+    checks against the limit."""
+    if N * bs * bs > INDEX_LIMIT:
+        raise ValueError(
+            f"K4 indexes a scenario's upper blocks with an int: N={N}, "
+            f"bs={bs} has {N * bs * bs} values, over {INDEX_LIMIT}")
     need = smem_bytes(N, bs, dtype, smem_elems)
     if need > SMEM_LIMIT:
-        raise ValueError(
-            f"K4 keeps a scenario's vectors (and, at this size, its system) "
-            f"in shared memory: N={N}, bs={bs} in {dtype} needs {need} "
-            f"bytes, over the {SMEM_LIMIT}-byte limit of one thread block")
+        raise ValueError(f"K4's block for N={N}, bs={bs} in {dtype} needs "
+                         f"{need} bytes, over the {SMEM_LIMIT}-byte limit")
 
 
 def _precond_code(precond: str) -> int:
@@ -96,19 +125,41 @@ def _precond_code(precond: str) -> int:
     return int(precond == "SS")
 
 
+def storage_code(dtype: torch.dtype, operands: torch.dtype) -> int:
+    """pcg.cu's code for packed blocks stored in ``dtype`` under operands
+    of ``operands``: 0 for their own type; TypeError for a type K4 does not
+    read, or one wider than the operands' (JAX would promote the whole
+    solve to it)."""
+    if dtype == operands:
+        return 0
+    if dtype not in STORAGE and dtype != torch.float64:
+        raise TypeError(f"K4 block storage must be float64, float32, "
+                        f"bfloat16 or float16, got {dtype}")
+    if dtype.itemsize > operands.itemsize:
+        raise TypeError(f"K4 block storage {dtype} is wider than the "
+                        f"operands' {operands}")
+    return STORAGE[dtype]
+
+
 def pcg_fused_plain(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
                     max_iter: int, relative: bool):
     """Plain version of K4 (pallas_pcg.py:123-206): solves S dx = r0 from
     dx = 0 for every scenario.  Returns (dx (B, N, bs), iters (B,) int32).
 
-    apply_P is s = Dinv r, plus for SS s - Dinv (U s_{k+1} + U^T s_{k-1});
-    the threshold is max(tol |nu_0|, 1e-30) when relative, else tol; a
-    scenario that is done takes no step and keeps nu and p.  One host check
-    per iteration ends the loop once every scenario is done."""
+    diag_p and pdiag_p may be stored narrower than r0 (storage_code); each
+    is cast to r0's dtype where it is used.  apply_P is s = Dinv r, plus for
+    SS s - Dinv (U s_{k+1} + U^T s_{k-1}); the exit metric is nu = r's, or
+    the true residual r'r when pdiag_p's dtype is not r0's (:335-336); the
+    threshold is max(tol |m_0|, 1e-30) when relative, else tol; a scenario
+    that is done takes no step and keeps nu and p.  One host check per
+    iteration ends the loop once every scenario is done."""
     ss = _precond_code(precond) == 1
+    for t in (diag_p, pdiag_p):
+        storage_code(t.dtype, r0.dtype)
+    true_exit = pdiag_p.dtype != r0.dtype
     bs = r0.shape[-1]
-    D = _unpack_sym(diag_p, bs)
-    P = _unpack_sym(pdiag_p, bs)
+    D = _unpack_sym(diag_p.to(r0.dtype), bs)
+    P = _unpack_sym(pdiag_p.to(r0.dtype), bs)
     U = upper[:, :-1]
 
     def off(v):
@@ -130,9 +181,10 @@ def pcg_fused_plain(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
     s = apply_P(r)
     p = s
     nu = _dot(r, s)
-    thr = ((tol * nu.abs()).clamp(min=1e-30) if relative
-           else torch.full_like(nu, tol))
-    done = nu.abs() <= thr
+    m = _dot(r, r) if true_exit else nu
+    thr = ((tol * m.abs()).clamp(min=1e-30) if relative
+           else torch.full_like(m, tol))
+    done = m.abs() <= thr
     it = torch.zeros(nu.shape, dtype=torch.int32, device=r0.device)
     for _ in range(max_iter):
         if bool(done.all()):
@@ -146,8 +198,9 @@ def pcg_fused_plain(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
         r = torch.where(keep, r, r - a * Ap)
         s = apply_P(r)
         nu_new = torch.where(done, nu, _dot(r, s))
+        m = _dot(r, r) if true_exit else nu_new
         it = torch.where(done, it, it + 1)
-        done = done | (nu_new.abs() <= thr)
+        done = done | (m.abs() <= thr)
         p = torch.where(done[:, None, None], p,
                         s + (nu_new / nu)[:, None, None] * p)
         nu = nu_new
@@ -167,34 +220,59 @@ def _check_operands(diag_p, upper, pdiag_p, r0):
                              f"{tuple(t.shape)}")
         if t.device != r0.device or not on_card(t):
             raise ValueError("K4 operands must all lie on one CUDA device")
-        if t.dtype != r0.dtype:
-            raise TypeError("K4 operands must share one dtype")
+        if name in ("upper", "r0") and t.dtype != r0.dtype:
+            raise TypeError("K4's upper blocks and r0 must share one dtype")
         if not t.is_contiguous():
             raise ValueError("K4 operands must be contiguous")
+    for t in (diag_p, pdiag_p):
+        storage_code(t.dtype, r0.dtype)
     check_fits(N, bs, r0.dtype)
     return B, N, bs
 
 
-def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
-                     max_iter: int, relative: bool):
-    """K4 on the card: one thread block per scenario, two rows per thread;
-    same arguments and results as ``pcg_fused_plain``."""
-    from trajoptmpcreference_tpu_torch.kernels import _build
-    code = _precond_code(precond)
-    B, N, bs = _check_operands(diag_p, upper, pdiag_p, r0)
+def launch(fn, diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
+           max_iter: int, relative: bool, work_elems, stream=None):
+    """Call a ``tmr_pcg_<f32|f64>`` entry (the card's library, or a g++
+    build of pcg.cu on CPU tensors) on these operands: allocates dx, the
+    iteration counts and the global operator's workspace (``work_elems``:
+    the build's ``tmr_pcg_work_elems``), and raises on a nonzero return
+    (a CUDA error, or -1 for a shape the entry refuses).  Returns (dx,
+    iters)."""
+    B, N, bs = r0.shape
+    dcode = storage_code(diag_p.dtype, r0.dtype)
+    pcode = storage_code(pdiag_p.dtype, r0.dtype)
     dx = torch.empty_like(r0)
     iters = torch.empty((B,), dtype=torch.int32, device=r0.device)
-    if B:
-        suffix = "f32" if r0.dtype == torch.float32 else "f64"
-        fn = getattr(_build.library("pcg"), f"tmr_pcg_{suffix}")
-        stream = torch.cuda.current_stream(r0.device).cuda_stream
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-        rc = fn(ptr(diag_p), ptr(upper), ptr(pdiag_p), ptr(r0), ptr(dx),
-                ptr(iters), B, N, bs, code, int(relative), max_iter,
-                float(tol), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"CUDA kernel pcg failed: cudaError {rc}")
-        pcg_fused_kernel.launches += 1
+    per = int(work_elems(N, bs, r0.element_size()))
+    work = torch.empty((B * per,), dtype=r0.dtype, device=r0.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t.numel() else None)
+    rc = fn(ptr(diag_p), ptr(upper), ptr(pdiag_p), ptr(r0), ptr(dx),
+            ptr(iters), ptr(work), B, N, bs, dcode, pcode,
+            _precond_code(precond), int(relative), max_iter, float(tol),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"kernel pcg failed: return code {rc}")
+    return dx, iters
+
+
+def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
+                     max_iter: int, relative: bool):
+    """K4 on the card: one thread block per scenario; same arguments and
+    results as ``pcg_fused_plain``.  The packed blocks go to the kernel in
+    their storage dtype."""
+    _precond_code(precond)
+    B, N, bs = _check_operands(diag_p, upper, pdiag_p, r0)
+    if not B:
+        return (torch.empty_like(r0),
+                torch.empty((0,), dtype=torch.int32, device=r0.device))
+    lib = _pcg_library()
+    suffix = "f32" if r0.dtype == torch.float32 else "f64"
+    dx, iters = launch(getattr(lib, f"tmr_pcg_{suffix}"), diag_p, upper,
+                       pdiag_p, r0, precond=precond, tol=tol,
+                       max_iter=max_iter, relative=relative,
+                       work_elems=lib.tmr_pcg_work_elems,
+                       stream=torch.cuda.current_stream(r0.device).cuda_stream)
+    pcg_fused_kernel.launches += 1
     return dx, iters
 
 
@@ -225,25 +303,35 @@ def make_batched_pcg(N: int, bs: int, precond: str = "SS", tol: float = 1e-4,
 
     Returns solve(S, gam (B, N, bs), guess (B, N, bs)) -> (x, iters).  The
     block-Jacobi inverse (for J, diag(1/d)) and r0 = gam - S guess are
-    computed outside the kernel; the kernel solves from a zero iterate and
-    x = guess + dx.  CUDA tensors go to K4 (or raise), CPU tensors to
-    ``pcg_fused_plain``.  A storage dtype other than the operands' (the
-    TPU's bf16 preconditioner) is not ported."""
-    if precond_dtype is not None or operator_dtype is not None:
-        raise NotImplementedError(
-            "precond_dtype / operator_dtype (lower-precision block storage "
-            "and its true-residual exit) are not ported; see ROADMAP.md")
+    computed outside the kernel in the operands' dtype; the kernel solves
+    from a zero iterate and x = guess + dx.  ``operator_dtype`` stores the
+    packed diagonal blocks, ``precond_dtype`` their packed inverses, in a
+    narrower dtype (bfloat16, float16, or float32 under float64 operands;
+    the upper blocks keep the operands'); with a preconditioner stored
+    narrower than the operands the loop exits on the true residual r'r
+    (:335-336).  A storage dtype wider than the operands' raises TypeError
+    (JAX would promote the whole solve).  CUDA tensors go to K4 (or
+    raise), CPU tensors to ``pcg_fused_plain``."""
     _precond_code(precond)
+    for name, dt in (("precond_dtype", precond_dtype),
+                     ("operator_dtype", operator_dtype)):
+        if dt is not None and dt not in STORAGE and dt != torch.float64:
+            raise TypeError(f"{name} must be float64, float32, bfloat16 or "
+                            f"float16, got {dt}")
 
     def solve(S: BlockTridiag, gam, guess):
         if S.nblocks != N or S.bs != bs:
             raise ValueError(f"solver built for N={N}, bs={bs}; got "
                              f"N={S.nblocks}, bs={S.bs}")
         r0 = gam - btd_matvec(S, guess)
-        ops = pack_operands(S, r0, precond)
+        diag_p, upper, pdiag_p, r0p = pack_operands(S, r0, precond)
+        if operator_dtype is not None:
+            diag_p = diag_p.to(operator_dtype)
+        if precond_dtype is not None:
+            pdiag_p = pdiag_p.to(precond_dtype)
         fused = pcg_fused_kernel if on_card(r0) else pcg_fused_plain
-        dx, iters = fused(*ops, precond=precond, tol=tol, max_iter=max_iter,
-                          relative=relative)
+        dx, iters = fused(diag_p, upper, pdiag_p, r0p, precond=precond,
+                          tol=tol, max_iter=max_iter, relative=relative)
         return guess + dx.reshape(r0.shape), iters.reshape(r0.shape[:-2])
 
     return solve
