@@ -22,7 +22,7 @@ Phases (each prints its own numbers; any failure exits non-zero):
    the most rows that variant takes), at block sizes its shared-operator
    variant reads at run time, at the first design's largest shapes (N =
    156 in f32, 78 in f64, bs = 12; these at 12 fixed iterations), and at
-   N = 256 in f64 (the global operator: the shape the shared-memory limit
+   N = 256 in f64 (the cluster variant: a shape the shared-memory limit
    refused until K4 had its third variant);
 4. each kernel's time beside its plain version's and its bound, median of
    20, with two timers (kernels/timing.py): CUDA events around one call
@@ -174,16 +174,24 @@ Phases (each prints its own numbers; any failure exits non-zero):
    equal iteration counts; on the flagship's cold-start Schur systems the
    f32 residuals, gap to the exact solution and iterations with bf16
    inverses beside f32 ones (reported);
-24. K4 beyond one block's shared memory (the global operator): random SPD
-   and negative-definite systems, BJ and SS, in f32 at (N, bs) = (64, 24),
-   (256, 12), (1,024, 12) and in f64 at (64, 24), (256, 12), against
-   pcg_fused_plain under phase 3's bars with equal counts; its times at
-   (64, 24) and (256, 12) f32 beside the bound; the generic (bs = 24)
-   Schur operator of the torque-limited flagship's cold QP in f64 under
-   phase 8's bar (f32 residuals reported); one cold PCG-SS solve of the
-   long-horizon flagship (N = 256, 3.84 s) through K1-K4 in f64 against
-   K4's plain version under phase 5's bar, with a K4 exiting a decade
-   early above it, and the f32 solve's events time and launches;
+24. K4 beyond one block's shared memory: the cluster variant (one
+   thread-block cluster of C <= 8 blocks per scenario, the operator in
+   the cluster's shared memory) on random SPD and negative-definite
+   systems, BJ and SS, in f32 at (N, bs) = (64, 24), (256, 12), (1,024,
+   12) and in f64 at (64, 24), (256, 12), and the global operator (past 8
+   blocks) at (2,048, 12) f32, against pcg_fused_plain under phase 3's
+   bars with equal counts; for each C the clusters resident at once
+   (cudaOccupancyMaxActiveClusters) and the shared memory per block; the
+   cluster and the global variants timed in turn at (64, 24) and (256,
+   12) f32 beside the bound, and the shared-operator variant beside a
+   one-block cluster at (128, 12); the generic (bs = 24) Schur operator
+   of the torque-limited
+   flagship's cold QP in f64 under phase 8's bar (f32 residuals
+   reported); one cold PCG-SS solve of the long-horizon flagship (N =
+   256, 3.84 s) through K1-K4 in f64 against K4's plain version under
+   phase 5's bar, with a K4 exiting a decade early above it, and the f32
+   solve's events time and launches; the last two through the cluster
+   variant;
 25. the examples (trajoptmpcreference_tpu_torch.examples) on the card,
    each printing its own lines: mpc_arm6 as shipped (N = 64, 100 steps,
    QP-PCG-SS) and with --torque-limit 6, in f64 (the final end-effector
@@ -288,12 +296,16 @@ NATIVE_TOL = {"fd": 1e-10, "fd_grad": 1e-10, "ee_pos": 1e-12, "Jqd": 1e-7}
 # iteration apart (their exit met inside f32 rounding)
 STORAGE_CONV_TOL = {"torch.float32": 1e-8, "torch.float64": 1e-12}
 STORAGE_EDGE = 0.01
-# phase 24: K4's global operator (every shape over one block's shared
-# memory) on random systems, (dtype, N, bs, B); the long-horizon flagship
-# (N = 256, dt = 0.015: 3.84 s); its planted fault exits a decade early
-GLOBAL_SHAPES = [("float32", 64, 24, 512), ("float32", 256, 12, 512),
-                 ("float32", 1024, 12, 64), ("float64", 64, 24, 512),
-                 ("float64", 256, 12, 512)]
+# phase 24: K4's cluster variant (the shapes over one block's shared
+# memory, up to 8 blocks') on random systems, (dtype, N, bs, B), and its
+# global operator past 8 blocks; the shapes each variant is timed at (the
+# shared operator's first times); the long-horizon flagship (N = 256, dt
+# = 0.015: 3.84 s); its planted fault exits a decade early
+CLUSTER_SHAPES = [("float32", 64, 24, 512), ("float32", 256, 12, 512),
+                  ("float32", 1024, 12, 64), ("float64", 64, 24, 512),
+                  ("float64", 256, 12, 512)]
+GLOBAL_SHAPE = ("float32", 2048, 12, 8)
+CLUSTER_TIMED, SHARED_TIMED = ((64, 24), (256, 12)), (128, 12)
 LONG_N, EARLY_EXIT_X = 256, 10.0
 # phase 25: the JAX package's mpc_arm6 on the CPU in f64 (N = 64, 100
 # steps, QP-PCG-SS; tests/examples_reference.py): final end-effector error
@@ -392,8 +404,14 @@ def main():
             f"bytes per block at N=156, bs={PCG_BS}")
         log(f"[ptxas] pcg global-operator variant ({tag}): "
             + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_globalI{t}E")
+            + f"; dynamic shared memory {FP.smem_bytes(2048, PCG_BS, dt)} "
+            f"bytes per block at N=2048, bs={PCG_BS}")
+        log(f"[ptxas] pcg cluster variant ({tag}, bs={PCG_BS}): "
+            + ptxas_summary(_build.ptxas_report("pcg"),
+                            f"pcg_clusterI{t}Li{PCG_BS}E")
             + f"; dynamic shared memory {FP.smem_bytes(256, PCG_BS, dt)} "
-            f"bytes per block at N=256, bs={PCG_BS}")
+            f"bytes per block at N=256, bs={PCG_BS} "
+            f"({FP.cluster_size(256, PCG_BS, dt)} blocks a scenario)")
 
     # ---- 3. kernels vs plain versions (f32, on the card)
     plant = URDFPlant(robot=serial_arm(6))
@@ -1218,7 +1236,7 @@ def check_pcg(torch, BT, FP, dev):
             assert rel < limit, (pre, bs, Nn, dt, rel)
     # f64 at the flagship's shape (the register variant) and at a shape
     # over one block's shared memory, which the first two variants refused
-    # (the global operator)
+    # (the cluster variant)
     for Bn, Nn, seed, sign in ((B, N, 8, -1.0), (2, 4 * N, 9, 1.0)):
         S, b = random_systems(torch, BT, Bn, Nn, PCG_BS, seed, sign, f64, dev)
         ops = FP.pack_operands(S, b, "SS")
@@ -1665,20 +1683,40 @@ def k4_as(FP, fn):
 
 def beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
                   events_ms, device_ms, x0s_np, goals_np, dev):
-    """Phase 24.  K4's global operator (variant 2: the packed blocks in
-    device memory, the vectors in a workspace) on the shapes the first two
-    variants refuse: random SPD and negative-definite systems, BJ and SS,
-    PCG_FIXED_ITERS fixed iterations against pcg_fused_plain under the
-    phase-3 bars with equal counts; its times at (N, bs) = (64, 24) and
-    (256, 12) in f32 beside the bound; the generic (bs = 24) Schur
-    operator of the torque-limited flagship's cold QP in f64 under phase
-    8's bar; and the long-horizon (N = 256) PCG-SS flagship's cold solve
-    through K4 against K4's plain version in f64 under phase 5's bar."""
+    """Phase 24.  K4 on the shapes the first two variants refuse: the
+    cluster variant (variant 3: a cluster of C blocks per scenario, the
+    operator in their shared memory) at CLUSTER_SHAPES and the global
+    operator (variant 2: the packed blocks in device memory, the vectors
+    in a workspace) past 8 blocks at GLOBAL_SHAPE, on random SPD and
+    negative-definite systems, BJ and SS, PCG_FIXED_ITERS fixed iterations
+    against pcg_fused_plain under the phase-3 bars with equal counts; for
+    each C, the clusters the card holds at once and the shared memory per
+    block; the cluster and the global variants timed in turn (through
+    pcg_fused_kernel's ``variant``) at CLUSTER_TIMED in f32, and the shared
+    operator beside a cluster of one block at SHARED_TIMED, beside the
+    bound; the generic (bs = 24) Schur operator of the torque-limited
+    flagship's cold QP in f64 under phase 8's bar; and the long-horizon (N
+    = 256) PCG-SS flagship's cold solve through K4 against K4's plain
+    version in f64 under phase 5's bar."""
+    from trajoptmpcreference_tpu_torch.kernels import _build
     fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
-    for dname, Nn, bs, Bn in GLOBAL_SHAPES:
+    lib = _build.library("pcg")
+    for dname, Nn, bs, Bn in CLUSTER_SHAPES + [GLOBAL_SHAPE]:
         dt = getattr(torch, dname)
         limit = PCG_TOL if dt == torch.float32 else 1e-10
-        variant = FP.variant(Nn, bs, dt)
+        variant, C = FP.variant(Nn, bs, dt), FP.cluster_size(Nn, bs, dt)
+        want = 2 if (dname, Nn, bs, Bn) == GLOBAL_SHAPE else 3
+        assert variant == want, (Nn, bs, dname, variant)
+        if variant == 3:
+            # the kernel built for this block size (0: read at run time)
+            mangled = (f"pcg_clusterI{'f' if dname == 'float32' else 'd'}"
+                       f"Li{bs if bs in (12, 24) else 0}E")
+            log(f"[cluster] {dname} N={Nn} bs={bs}: C={C} blocks a scenario, "
+                f"{FP.smem_bytes(Nn, bs, dt)} bytes of shared memory per "
+                f"block; {lib.tmr_pcg_max_clusters(Nn, bs, dt.itemsize)} "
+                f"clusters resident at once (cudaOccupancyMaxActiveClusters)"
+                f"; ptxas "
+                + ptxas_summary(_build.ptxas_report("pcg"), mangled))
         for sign, kind in ((1.0, "spd"), (-1.0, "negdef")):
             S, b = random_systems(torch, BT, Bn, Nn, bs, 50 + Nn + bs, sign,
                                   dt, dev)
@@ -1688,33 +1726,52 @@ def beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
                 ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
                 torch.cuda.synchronize()
                 rel = rel_err(out, ref)
-                log(f"[global] pcg {pre} {kind} {dname} B={Bn} N={Nn} bs={bs}"
-                    f" ({FP.VARIANTS[variant]}, {FP.smem_bytes(Nn, bs, dt)} "
-                    f"bytes of shared memory): {PCG_FIXED_ITERS} iterations "
+                log(f"[{'cluster' if variant == 3 else 'global'}] pcg {pre} "
+                    f"{kind} {dname} B={Bn} N={Nn} bs={bs}"
+                    f" ({FP.VARIANTS[variant]}"
+                    + (f" of {C} blocks" if variant == 3 else "")
+                    + f", {FP.smem_bytes(Nn, bs, dt)} bytes of shared memory"
+                    f" per block): {PCG_FIXED_ITERS} iterations "
                     f"max|d|/max|ref| = {rel:.3e} (limit {limit:.0e}), "
                     f"iteration counts equal {torch.equal(it, it_ref)}")
-                assert variant == 2, (Nn, bs, dname)
                 assert bool(torch.isfinite(out).all())
                 assert torch.equal(it, it_ref), (pre, kind, dname, Nn, bs)
                 assert rel < limit, (pre, kind, dname, Nn, bs, rel)
             del S, b, ops, out, ref
     times = {}
     kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
-    for Nn, bs in ((64, 24), (256, 12)):
+    for Nn, bs in CLUSTER_TIMED + (SHARED_TIMED,):
         S, b = random_systems(torch, BT, B, Nn, bs, 91, 1.0, torch.float32,
                               dev)
         ops = FP.pack_operands(S, b, "SS")
-        call = lambda: FP.pcg_fused_kernel(*ops, **kw)
         t_plain = events_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
-        t_ev, t_dev = events_ms(call), device_ms(call)
         bnd, by, need, did, hist = pcg_bound(torch, opcount, FP, ops, kw)
-        times[(Nn, bs)] = (t_ev, t_dev, t_plain, bnd, by)
-        log(f"[time] pcg global operator B={B} N={Nn} bs={bs} SS 40 "
-            f"iterations: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
-            f"device; plain {t_plain:.4f} ms events; bound {bnd:.4f} ms ({by};"
-            f" the function needs {need} operations (kernels/needed_ops.cpp),"
-            f" the kernel does {did}; iterations {json.dumps(hist)}), "
-            f"{100 * bnd / t_dev:.1f}% of bound in device time (medians of 20)")
+        # in turn: one variant, the other, the other, the one again; at
+        # SHARED_TIMED the shared operator beside a cluster of one block
+        # (the cluster variant's layout without a second rank)
+        order = (3, 2, 2, 3) if (Nn, bs) in CLUSTER_TIMED else (1, 3, 3, 1)
+        got = collections.defaultdict(list)
+        for v in order:
+            call = lambda: FP.pcg_fused_kernel(*ops, variant=v, **kw)
+            got[v].append((events_ms(call), device_ms(call)))
+        for v, runs in got.items():
+            t_ev = min(r[0] for r in runs)
+            t_dev = min(r[1] for r in runs)
+            times[(Nn, bs, v)] = (t_ev, t_dev, t_plain, bnd, by)
+            beside = ", in turn with the other" if len(got) > 1 else ""
+            name = FP.VARIANTS[v] + (
+                f" (C = {FP.cluster_size(Nn, bs, torch.float32)})"
+                if v == 3 else "")
+            log(f"[time] pcg {name} B={B} N={Nn} bs={bs} SS 40 "
+                f"iterations: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
+                f"device (the lower of {len(runs)} medians of 20{beside}: "
+                f"device " + ", ".join(f"{r[1]:.4f}" for r in runs)
+                + f"); plain {t_plain:.4f} ms events; bound {bnd:.4f} ms "
+                f"({by}; the function needs {need} operations "
+                f"(kernels/needed_ops.cpp), the variant the shape takes "
+                f"does {did}; iterations {json.dumps(hist)}), "
+                f"{100 * bnd / t_dev:.1f}% of bound in device time")
+        del S, b, ops
     generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev)
     long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev)
     return times
@@ -1724,7 +1781,7 @@ def generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
     """K4 on the generic (bs = nx + m = 24) Schur operator of the
     torque-limited flagship's cold QP (AS_KNOBS, zero controls, its first
     rho), assembled by kkt.schur_blocks as the sharded solve of phase 21
-    assembles it: the global operator at N = 64.  f64 under phase 8's bar
+    assembles it: the cluster variant at N = 64.  f64 under phase 8's bar
     (hold_pcg_f64, its planted fault above it) for SS, BJ and J; f32
     residuals reported beside cyclic reduction's and the plain version's,
     at the PCG flagship's settings (relative 1e-4, 40 iterations)."""
@@ -1742,10 +1799,11 @@ def generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
         S, gam, *_ = kkt.schur_blocks(
             blocks, torch.full((B,), o.rho_init, dtype=dt, device=dev))
         log(f"[generic] the generic Schur operator, {str(dt)[6:]}: B={B} "
-            f"N={N} bs={S.bs} ({FP.VARIANTS[FP.variant(N, S.bs, dt)]}); "
+            f"N={N} bs={S.bs} ({FP.VARIANTS[FP.variant(N, S.bs, dt)]} of "
+            f"{FP.cluster_size(N, S.bs, dt)} blocks); "
             f"active hard rows {int(blocks.hact.sum())} of "
             f"{blocks.hact.numel()} (zero controls)")
-        assert S.bs == 24 and FP.variant(N, S.bs, dt) == 2
+        assert S.bs == 24 and FP.variant(N, S.bs, dt) == 3
         return S, gam
 
     S, gam = operator(torch.float64)
@@ -1778,7 +1836,10 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     larger of SOLVE_BAR and SOLVE_FLOOR_X times the gap the plain
     version's output moved one ulp makes); K4 exiting a decade early
     (tolerance x EARLY_EXIT_X, a planted fault) must read above it.  The
-    f32 solve's events time and K1-K4's launches are reported."""
+    f32 solve's events time (median of 3) and K1-K4's launches are
+    reported, and its time with K4's global operator in the cluster
+    variant's place (k4_as), taken in turn.  K4 takes the cluster variant
+    in both dtypes."""
     kernel, plain = FP.pcg_fused_kernel, FP.pcg_fused_plain
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1802,6 +1863,8 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
 
     solver, X0, U0, params = problem(torch.float64)
     bs = solver.kkt.bs
+    for dt in (torch.float64, torch.float32):
+        assert FP.variant(LONG_N, bs, dt) == 3, dt
     sols = {}
     for key, fn in (("on", kernel), ("off", plain), ("ulp", moved),
                     ("fault", early)):
@@ -1815,7 +1878,8 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     exits_eq = torch.equal(a.exit_sqp, b.exit_sqp)
     iters_eq = torch.equal(a.sqp_iters, b.sqp_iters)
     log(f"[long] PCG-SS flagship N={LONG_N} (horizon {LONG_N * F.DT:.2f} s) "
-        f"B={B} bs={bs} cold solve, f64 ({FP.VARIANTS[FP.variant(LONG_N, bs, torch.float64)]}): "
+        f"B={B} bs={bs} cold solve, f64 (K4's cluster variant of "
+        f"{FP.cluster_size(LONG_N, bs, torch.float64)} blocks): "
         f"K4 vs its plain version max|dU|/max|U| = {rel:.3e}; plain with "
         f"its output moved one ulp {floor:.3e}; bar {bar:.3e} (max of "
         f"{SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap); K4 exiting "
@@ -1835,9 +1899,19 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     res = solver.solve(X0, U0, params)
     torch.cuda.synchronize()
     counts = [k.launches for k in kernels]
-    t = events_ms(lambda: solver.solve(X0, U0, params), reps=1)
-    log(f"[long] PCG-SS flagship N={LONG_N} B={B} cold solve, f32: "
-        f"{t:.3f} ms events; launches K1 {counts[0]}, K2 {counts[1]}, K3 "
+    def solve():
+        return solver.solve(X0, U0, params)
+
+    t = events_ms(solve, reps=3)
+    with k4_as(FP, lambda *a, **kw: kernel(*a, variant=2, **kw)):
+        t_global = events_ms(solve, reps=3)
+    t_again = events_ms(solve, reps=3)
+    log(f"[long] PCG-SS flagship N={LONG_N} B={B} cold solve, f32 (K4's "
+        f"cluster variant of {FP.cluster_size(LONG_N, bs, torch.float32)} "
+        f"blocks): {t:.3f} ms events (median of 3; {t_again:.3f} after "
+        f"the global operator's turn); with K4's global operator in its "
+        f"place {t_global:.3f} ms; launches K1 "
+        f"{counts[0]}, K2 {counts[1]}, K3 "
         f"{counts[2]}, K4 {counts[3]}; exit codes "
         f"{res.exit_sqp.bincount().tolist()}, U finite "
         f"{bool(torch.isfinite(res.U).all())}")

@@ -117,6 +117,7 @@ def host_libs(tmp_path_factory):
             libs["pcg_smem_elems"] = lib.tmr_pcg_smem_elems
             libs["pcg_variant"] = lib.tmr_pcg_variant
             libs["pcg_work_elems"] = lib.tmr_pcg_work_elems
+            libs["pcg_cluster_size"] = lib.tmr_pcg_cluster_size
     return libs
 
 
@@ -321,6 +322,32 @@ def test_operation_counts_follow_the_code():
     assert c0 > 0 and c20 - c10 == c10 - c0 > 0
 
 
+def test_operation_counts_follow_the_cluster_code(host_libs):
+    """kernels/opcount.py counts the variant the operands' dtype takes: at
+    (N, bs) = (1024, 12) f32 operands take a cluster of 7 blocks, f64 ones
+    the global operator (past 8 blocks).  Both do the same arithmetic per
+    row; a block's sum over w warps is 31 (w + 1) additions (a tree per
+    warp and one over the slots).  Each of the cluster's sums adds 7
+    blocks' sums of 19 warps (147 knots a rank, 1,764 rows, 3 a thread:
+    608 threads) in order, 7 x 620 + 6 = 4,346 additions, where the global
+    operator adds one block's of 32 warps, 1,023: 3,323 more a sum.  Two
+    scenarios, one converged before its first iteration (one sum, r's),
+    the other taking k fixed iterations (1 + 2 k sums: p'Ap and r's)."""
+    ops = _pcg_problem(2, 1024, 12, seed=3, precond="SS")
+    f32 = [t.float() for t in ops]
+    var, csize = host_libs["pcg_variant"], host_libs["pcg_cluster_size"]
+    assert FP.variant(1024, 12, torch.float32, var) == 3
+    assert FP.cluster_size(1024, 12, torch.float32, csize) == 7
+    assert FP.variant(1024, 12, torch.float64, var) == 2
+    kw = dict(ss=True, relative=False, tol=0.0)
+    for k in (0, 3, 6):
+        cl = opcount.count_pcg(*f32, max_iter=k, **kw)
+        gl = opcount.count_pcg(*ops, max_iter=k, **kw)
+        assert cl - gl == 3_323 * (2 + 2 * k), (k, cl, gl)
+    c = [opcount.count_pcg(*f32, max_iter=k, **kw) for k in (0, 3, 6)]
+    assert c[2] - c[1] == c[1] - c[0] > 0
+
+
 def _pcg_problem(B, N, bs, seed, precond, shift=4.0):
     """Packed K4 operands for B random systems (scenario 1 negative
     definite, scenario 0's r0 exactly zero: converged before the first
@@ -453,22 +480,31 @@ def test_host_compiled_pcg_shared_memory_size(host_libs):
     and two reduction slots per warp), the shared operator (the system,
     four vectors and the slots) and the global operator (the slots alone);
     the flagship fits in a tenth of the first design's 95,364 bytes, and a
-    shape over one block's shared memory takes the global operator, whose
-    block fits."""
+    shape over one block's shared memory takes the cluster variant (a run
+    of knots, one upper block more, five vectors, the block's and the
+    cluster's reduction slots), and one past 8 blocks' the global
+    operator, whose blocks fit."""
     smem, var = host_libs["pcg_smem_elems"], host_libs["pcg_variant"]
     for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5), (157, 12), (256, 12)):
         for dtype in (torch.float32, torch.float64):
             elems = smem(N, bs, dtype.itemsize)
             assert FP.smem_bytes(N, bs, dtype, smem) == dtype.itemsize * elems
             tri = bs * (bs + 1) // 2
+            C = FP.cluster_size(N, bs, dtype, host_libs["pcg_cluster_size"])
+            nk = -(-N // C)
             assert elems == {
                 0: 3 * N * bs + 4 * bs + 64,
                 1: 2 * N * tri + N * bs * bs + 4 * N * bs + 64,
-                2: 64}[FP.variant(N, bs, dtype, var)]
+                2: 64,
+                3: 2 * nk * tri + (nk + 1) * bs * bs + 5 * nk * bs + 96,
+            }[FP.variant(N, bs, dtype, var)]
     assert FP.smem_bytes(64, 12, torch.float32, smem) == 9_664
     FP.check_fits(64, 12, torch.float64, smem)
-    assert FP.variant(4 * 64, 12, torch.float64, var) == 2
+    assert FP.variant(4 * 64, 12, torch.float64, var) == 3
     FP.check_fits(4 * 64, 12, torch.float64, smem)
+    assert FP.variant(1280, 12, torch.float64, var) == 2
+    assert smem(1280, 12, 8) == 64
+    FP.check_fits(1280, 12, torch.float64, smem)
 
 
 def _first_design_elems(N, bs):

@@ -271,9 +271,10 @@ def test_kernel_pcg_sizes_on_the_generic_path(tmp_path):
     variant holds up to N = 45 in f32 and N = 22 in f64 (its size formula,
     from a g++ build of pcg.cu), bs = 18 up to 78 / 39 and bs = 30 up to
     29 / 14; one block row more, and the flagship's N = 64 at bs = 24 and
-    30, take the global operator (the blocks in device memory), and
-    check_fits raises at none of them; the condensed core (bs = 12) takes
-    the register variant."""
+    30, take the cluster variant (a cluster of blocks per scenario, the
+    operator spread over their shared memory), and check_fits raises at
+    none of them; the condensed core (bs = 12) takes the register
+    variant."""
     so = tmp_path / "libpcg.so"
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
                     "-fPIC", "-o", str(so), str(_build.CSRC / "pcg.cu")],
@@ -288,7 +289,7 @@ def test_kernel_pcg_sizes_on_the_generic_path(tmp_path):
         assert FP.variant(n_max, bs, dtype, var) == 1
         for n in {n_max + 1, max(n_max + 1, 64)}:
             FP.check_fits(n, bs, dtype, elems)
-            assert FP.variant(n, bs, dtype, var) == 2, (bs, dtype, n)
+            assert FP.variant(n, bs, dtype, var) == 3, (bs, dtype, n)
     for dtype in (torch.float32, torch.float64):
         FP.check_fits(64, 12, dtype, elems)
         assert FP.variant(64, 12, dtype, var) == 0

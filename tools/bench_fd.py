@@ -63,11 +63,13 @@ LANE_COUNTS = {"fd": (512, 1000, 32_256, 96_768, 290_304),
                "task_vec": (512, 1536, 4608, 32_256, 96_768, 290_304)}
 PCG_BATCHES, PCG_N, PCG_BS = (1, 512, 1000), 64, 12
 # the entry functions whose ptxas lines are printed: n = 6, or bs = 12 (K4's
-# first design had one kernel per type; the register and shared variants)
+# first design had one kernel per type; the register, shared and cluster
+# variants)
 PTXAS_KEYS = {"fd": ("IfLi6E", "IdLi6E"), "fd_grad": ("IfLi6E", "IdLi6E"),
               "task_vec": ("IfLi6E", "IdLi6E"),
               "pcg": ("pcg_kernelIfE", "pcg_kernelIdE", "pcg_regsIfLi12E",
-                      "pcg_regsIdLi12E", "pcg_sharedIfE", "pcg_sharedIdE")}
+                      "pcg_regsIdLi12E", "pcg_sharedIfE", "pcg_sharedIdE",
+                      "pcg_clusterIfLi12EE", "pcg_clusterIdLi12EE")}
 PLAIN = {"fd": lanes.fd_lanes, "fd_grad": lanes.fd_grad_lanes,
          "task_vec": lambda robot, q, qd, u:
              LaneKinematics(robot).task_vec_L(q, qd)}

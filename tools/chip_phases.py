@@ -3,8 +3,9 @@ kernels, to iterate on them without phases 1-22 (~6 minutes).
 
     python tools/chip_phases.py [23] [24] [25]      # on a machine with a CUDA card
 
-23: K4's storage dtypes; 24: K4's global operator, the generic operator
-and the long-horizon solve; 25: the examples.  A development script: the
+23: K4's storage dtypes; 24: K4's cluster and global-operator variants
+(checked, and timed in turn), the generic operator and the long-horizon
+solve; 25: the examples.  A development script: the
 phases' bars and prints are chip_smoke.py's own.
 """
 

@@ -22,7 +22,8 @@ Each returns ``cudaGetLastError()`` after its launch on ``stream``, and
 K4's -1 for a shape it cannot index (``ARGTYPES`` binds each library's
 signature).  K4's ``dcode`` / ``pcode`` say how the packed blocks and
 their inverses are stored (``ops/fused_pcg.STORAGE``) and ``work`` is its
-global operator's workspace (``tmr_pcg_work_elems``).
+global operator's workspace (``tmr_pcg_work_elems``); its
+``tmr_pcg_<f32|f64>_as`` entries take one more int, the variant to run.
 
     python -m trajoptmpcreference_tpu_torch.kernels._build   # build, print ptxas
 """
@@ -115,12 +116,27 @@ def ptxas_report(name: str) -> str:
 
 def bind_pcg_shapes(lib: ctypes.CDLL) -> None:
     """Bind K4's per-shape entries, each of (N, bs, bytes per value): the
-    variant, the shared memory per block and the workspace per scenario
-    (in values); and the storage decoder (pointer, index, code -> f64)."""
-    for fn, res in ((lib.tmr_pcg_variant, ctypes.c_int),
-                    (lib.tmr_pcg_smem_elems, ctypes.c_longlong),
-                    (lib.tmr_pcg_work_elems, ctypes.c_longlong)):
-        fn.argtypes, fn.restype = [_I, _I, _I], res
+    variant, the cluster variant's blocks per scenario, the shared memory
+    per block and the workspace per scenario (in values), and the cluster
+    variant's clusters resident at once on the card; the workspace of a
+    given variant (N, bs, variant); the entries that run a given variant
+    (``tmr_pcg_<f32|f64>_as``); and the storage decoder (pointer, index,
+    code -> f64).  A build of an older pcg.cu (a baseline in
+    tools/bench_fd.py) lacks the cluster variant's entries: those it has
+    are bound."""
+    for name, res in (("variant", ctypes.c_int),
+                      ("cluster_size", ctypes.c_int),
+                      ("smem_elems", ctypes.c_longlong),
+                      ("work_elems", ctypes.c_longlong),
+                      ("variant_work_elems", ctypes.c_longlong),
+                      ("max_clusters", ctypes.c_int)):
+        fn = getattr(lib, f"tmr_pcg_{name}", None)
+        if fn is not None:
+            fn.argtypes, fn.restype = [_I, _I, _I], res
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"tmr_pcg_{suffix}_as", None)
+        if fn is not None:
+            fn.argtypes, fn.restype = ARGTYPES["pcg"] + [_I], ctypes.c_int
     lib.tmr_pcg_stored.argtypes = [_P, ctypes.c_longlong, _I]
     lib.tmr_pcg_stored.restype = ctypes.c_double
 

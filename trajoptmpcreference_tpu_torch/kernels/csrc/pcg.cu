@@ -28,7 +28,7 @@
 // chain of shuffles and a barrier, so the solve is bound by the latency
 // of the block's barriers and sums and by the instructions each
 // multiply-add costs (PERF.md, "Inside K4": the sums' shuffle trees and
-// the other barriers take about a fifth of the time each).  Three
+// the other barriers take about a fifth of the time each).  Four
 // variants, chosen per (N, bs, type) by `variant`:
 //
 // * 0, registers (RegRow: the block sizes the plants give, bs = 2, 4,
@@ -49,16 +49,38 @@
 //   once to the operands' type (so the shared memory a shape needs, and
 //   the variant it takes, do not depend on the storage); each thread
 //   walks rows tid, tid + nt, ...; x lives in dx.
-// * 2, global operator (ShRows<T, true>: every shape the other two
-//   refuse): the same rows and phases, with the packed blocks left in
-//   device memory, read through the read-only path and converted at each
-//   use, and the vectors v, p, s, w in a workspace the wrapper allocates
-//   (4 N bs values a scenario); only the reduction slots are in shared
-//   memory.  __syncthreads() orders the block's device-memory writes as it
-//   orders its shared ones.  Each iteration reads the operator from L2 or
-//   device memory again: a cluster of blocks sharing a scenario in
-//   distributed shared memory is the Hopper design for these shapes
-//   (ROADMAP.md, queue 2).
+// * 3, cluster (ClRows: a shape whose system fits the shared memory of C
+//   <= 8 blocks, the portable cluster size, but not of one): one
+//   thread-block cluster per scenario, of the smallest C that fits,
+//   launched with a run-time cluster dimension.  Rank c owns a contiguous
+//   run of about N / C knots and holds, in its own shared memory, their
+//   packed D and P blocks, U_{k0-1} .. U_{k1-1} (the first for the
+//   transposed term of its first knot), its rows of v, p, s, s0 and w and
+//   the reduction slots, all knot-fastest so that a warp's loads at each
+//   step of its rows' dot products hit consecutive words (ClRows).  The
+//   operator is converted once at load, as in variant 1, and never read
+//   from device memory again; bs = 12 and 24 are built in.  Only two phases
+//   read another rank's rows: the matvec (p at k +- 1) and SS's t (s0 at
+//   k +- 1), each the neighbour's boundary block of bs values, read in
+//   place through distributed shared memory after the cluster barrier
+//   that ends the phase which wrote it; the other phases read their own
+//   rows and end on __syncthreads().  A sum is the block's sum, written by
+//   thread 0 into slot c of every rank, a cluster barrier, and slots 0 ..
+//   C-1 added in that order on every thread, so every thread of the
+//   cluster holds the same bits and takes the same exit.  p'Ap and r's
+//   use two sets of slots, so no rank writes a slot that another has yet
+//   to read; SS keeps s0 apart from s, so s = s0 - P t does not overwrite
+//   what a neighbour still reads.  The load and the store end on a cluster
+//   barrier: no rank writes into a rank that has not started, or exits
+//   while another may still read its shared memory.
+// * 2, global operator (ShRows<T, true>: the shapes past 8 blocks' shared
+//   memory): the same rows and phases as variant 1, with the packed blocks
+//   left in device memory, read through the read-only path and converted
+//   at each use, and the vectors v, p, s, w in a workspace the wrapper
+//   allocates (4 N bs values a scenario); only the reduction slots are in
+//   shared memory.  __syncthreads() orders the block's device-memory
+//   writes as it orders its shared ones.  Each iteration reads the
+//   operator from L2 or device memory again.
 //
 // All run one phase sequence (pcg_block) with a barrier after each phase
 // and a block sum as one shuffle tree per warp, one barrier, and a second
@@ -67,28 +89,35 @@
 // iteration: p (1), S p and p'Ap (1), x and r (1), then the
 // preconditioner: s = P r and r's (1) for J / BJ; for SS s0 = P r (1),
 // t = U s0_{k+1} + U^T s0_{k-1} (1), s = s0 - P t and r's (1).  4 barriers
-// with J / BJ, 6 with SS, with either exit.  The phase order alone keeps a
-// reduction slot from being overwritten before every warp has read it, so
-// the slots need no barrier of their own.
+// with J / BJ, 6 with SS, with either exit; in the cluster variant the
+// barriers after p and after s0, and the two sums, are cluster barriers
+// (2 with J / BJ, 4 with SS).  The phase order alone keeps a reduction
+// slot from being overwritten before every warp has read it, so the slots
+// need no barrier of their own.
 //
 // The same source compiles as plain C++ (no __CUDACC__): each phase runs
-// for every thread of the block in turn (TMR_GROUP_REVERSE_TIDS: in
-// reverse, to catch a phase in which one thread reads what another
-// writes), the block sums follow the warps' shuffle trees, 16-bit storage
-// is decoded bit by bit, and a host loop runs the scenarios one by one, so
-// g++ checks the arithmetic and the work partition on the CPU
-// (tests/test_torch_kernel_sources.py, tests/test_torch_pcg_large.py).
+// for every thread of the block in turn, and in the cluster variant for
+// every rank of the cluster in turn, each rank's shared memory one piece
+// of a host buffer (TMR_GROUP_REVERSE_TIDS: ranks and threads in reverse,
+// to catch a phase in which one thread reads what another writes), the
+// block sums follow the warps' shuffle trees and the cluster sums the
+// ranks' order, 16-bit storage is decoded bit by bit, and a host loop runs
+// the scenarios one by one, so g++ checks the arithmetic, the work
+// partition and the halos on the CPU (tests/test_torch_kernel_sources.py,
+// tests/test_torch_pcg_large.py).
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <functional>
 #include <type_traits>
+#include <vector>
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #define TMR_HD __host__ __device__ __forceinline__
 #else
-#include <vector>
 #define TMR_HD inline
 #endif
 
@@ -96,6 +125,7 @@ namespace tmr_pcg {
 
 constexpr int WARPS = 32;       // reduction slots: two per warp of a block
 constexpr int MAX_THREADS = 1024;
+constexpr int CLUSTER_MAX = 8;  // the portable cluster size
 constexpr size_t SMEM_LIMIT = 232448;   // one block's shared memory, bytes
 constexpr long long INDEX_LIMIT = 2147483647;   // the int row / block index
 
@@ -205,26 +235,74 @@ TMR_HD size_t shared_operator_elems(int N, int bs) {
   return 2 * N * tri + (size_t)N * bs * bs + 4 * n + 2 * WARPS;
 }
 
-// 0 registers, 1 shared operator, 2 global operator, for values of
-// `item` bytes
+// the cluster variant: rank c of `ranks` holds knots first_knot(c) ..
+// first_knot(c + 1) - 1, at most knots_max of them
+TMR_HD int first_knot(int N, int ranks, int c) {
+  return (int)((long long)c * N / ranks);
+}
+TMR_HD int knots_max(int N, int ranks) { return (N + ranks - 1) / ranks; }
+
+// shared memory of one rank of the cluster variant, in values: its packed
+// D and P blocks, nk + 1 upper blocks, five vectors, the block's reduction
+// slots and two sets of the ranks' partial sums (two values each)
+TMR_HD size_t cluster_elems(int N, int bs, int ranks) {
+  const size_t nk = knots_max(N, ranks), tri = (size_t)bs * (bs + 1) / 2;
+  return 2 * nk * tri + (nk + 1) * bs * bs + 5 * nk * bs + 2 * WARPS
+         + 4 * CLUSTER_MAX;
+}
+
+// the smallest cluster whose ranks each fit one block's shared memory for
+// values of `item` bytes; 0 if none of up to CLUSTER_MAX blocks does
+TMR_HD int cluster_size(int N, int bs, int item) {
+  for (int c = 1; c <= CLUSTER_MAX && c <= N; ++c)
+    if (cluster_elems(N, bs, c) * item <= SMEM_LIMIT) return c;
+  return 0;
+}
+
+// 0 registers, 1 shared operator, 2 global operator, 3 cluster, for
+// values of `item` bytes
 TMR_HD int variant(int N, int bs, int item) {
   if (use_regs(N, bs)) return 0;
-  return shared_operator_elems(N, bs) * item <= SMEM_LIMIT ? 1 : 2;
+  if (shared_operator_elems(N, bs) * item <= SMEM_LIMIT) return 1;
+  return cluster_size(N, bs, item) > 0 ? 3 : 2;
+}
+
+// whether variant v takes (N, bs) in values of `item` bytes
+TMR_HD bool takes(int v, int N, int bs, int item) {
+  switch (v) {
+    case 0: return use_regs(N, bs);
+    case 1: return shared_operator_elems(N, bs) * item <= SMEM_LIMIT;
+    case 2: return true;
+    case 3: return cluster_size(N, bs, item) > 0;
+    default: return false;
+  }
+}
+
+// shared memory of one block of variant v (a cluster of `ranks` blocks
+// for v = 3), in values
+TMR_HD size_t variant_smem_elems(int v, int N, int bs, int ranks) {
+  switch (v) {
+    case 0: return 3 * (size_t)N * bs + 4 * bs + 2 * WARPS;
+    case 1: return shared_operator_elems(N, bs);
+    case 3: return cluster_elems(N, bs, ranks);
+    default: return 2 * WARPS;
+  }
 }
 
 // shared memory of one block, in values, for the variant that takes
 // (N, bs) in values of `item` bytes
 TMR_HD size_t smem_elems(int N, int bs, int item) {
-  switch (variant(N, bs, item)) {
-    case 0: return 3 * (size_t)N * bs + 4 * bs + 2 * WARPS;
-    case 1: return shared_operator_elems(N, bs);
-    default: return 2 * WARPS;
-  }
+  return variant_smem_elems(variant(N, bs, item), N, bs,
+                            cluster_size(N, bs, item));
 }
 
-// the global operator's workspace per scenario, in values (v, p, s, w)
+// the workspace per scenario of variant v, in values (the global
+// operator's v, p, s, w)
+TMR_HD size_t variant_work_elems(int v, int N, int bs) {
+  return v == 2 ? 4 * (size_t)N * bs : 0;
+}
 TMR_HD size_t work_elems(int N, int bs, int item) {
-  return variant(N, bs, item) == 2 ? 4 * (size_t)N * bs : 0;
+  return variant_work_elems(variant(N, bs, item), N, bs);
 }
 
 // the launch's operands, whole batch
@@ -236,6 +314,7 @@ struct Args {
   int* iters;
   int B, N, bs, dcode, pcode, ss, relative, max_iter;
   T tol;
+  int ranks;   // blocks per scenario: C for the cluster variant, else 1
 };
 
 // one scenario's slice of the operands
@@ -258,8 +337,14 @@ TMR_HD Src<T> scenario(const Args<T>& a, size_t b) {
 template <typename T>
 struct Team {
   T *p, *s, *v, *w, *red;  // p, s; v: r (then t); w: Ap (then t), ShRows
-  T *D, *P, *U;            // the operator, shared-operator variant
-  int N, bs, n, nt;
+  T *D, *P, *U;            // the operator, shared-operator and cluster
+  T *s0, *cl;              // cluster: SS's s0; the ranks' partial sums
+  // cluster: the neighbours' boundary blocks of p and s0 (null at the ends)
+  const T *pprev, *pnext, *sprev, *snext;
+  int N, bs, n, nt;        // n: the block's rows (the rank's, in a cluster)
+  int rank, ranks, k0, nk; // cluster: this rank, C, its knots k0 .. k0+nk-1
+  int ld;                  // cluster: the knot stride of its arrays
+  ptrdiff_t stride;        // host build: values between two ranks' memories
 };
 
 // ---- dot products over one block row ------------------------------------
@@ -284,11 +369,13 @@ struct RegRow {
   int g[R], k[R];
   bool on[R];  // a row of S (the block's last warp may run past the end)
   T part, part2;   // the thread's shares of r's (or p'Ap) and of r'r
+  static constexpr bool CLUSTER = false;
 
-  static TMR_HD int threads(int N, int) {
+  static TMR_HD int threads(int N, int, int) {
     return round_warp((N * BS + R - 1) / R);
   }
-  static TMR_HD Team<T> carve(T* m, const Src<T>&, int N, int, int nt) {
+  static TMR_HD Team<T> carve(T* m, const Src<T>&, int N, int, int nt, int,
+                              int, ptrdiff_t) {
     Team<T> t{};
     t.N = N;
     t.bs = BS;
@@ -454,13 +541,14 @@ struct ShRows {
   T* x;  // the scenario's dx: only the thread of row g reads or writes x_g
   typename OperatorOf<T, GLOBAL>::Packed D, P;
   typename OperatorOf<T, GLOBAL>::Upper U;
+  static constexpr bool CLUSTER = false;
 
-  static TMR_HD int threads(int N, int bs) {
+  static TMR_HD int threads(int N, int bs, int) {
     const int n = round_warp(N * bs);
     return n < MAX_THREADS ? n : MAX_THREADS;
   }
   static TMR_HD Team<T> carve(T* m, const Src<T>& src, int N, int bs,
-                              int nt) {
+                              int nt, int, int, ptrdiff_t) {
     Team<T> t{};
     t.N = N;
     t.bs = bs;
@@ -578,6 +666,220 @@ struct ShRows {
   TMR_HD void store(const Team<T>&, const Src<T>&) {}  // x is dx already
 };
 
+// ---- the cluster variant: a rank's knots across its threads ---------------
+// p in rank r's shared memory, as another rank of the cluster addresses it
+template <typename T>
+TMR_HD T* peer(T* p, const Team<T>& tm, int r) {
+#ifdef __CUDA_ARCH__
+  return cooperative_groups::this_cluster().map_shared_rank(p, (unsigned)r);
+#else
+  return p + (ptrdiff_t)(r - tm.rank) * tm.stride;
+#endif
+}
+
+// sum_j a[j sa] v[j sv], j < n, from the first term; BS > 0: n = BS,
+// the loop unrolled, so a row's loads issue ahead of its multiply-adds
+template <int BS, typename T>
+TMR_HD T dot_strided(const T* a, int sa, const T* v, int sv, int n) {
+  T acc = a[0] * v[0];
+  if constexpr (BS > 0) {
+#pragma unroll
+    for (int j = 1; j < BS; ++j) acc += a[j * sa] * v[j * sv];
+  } else {
+    for (int j = 1; j < n; ++j) acc += a[j * sa] * v[j * sv];
+  }
+  return acc;
+}
+
+// (D v)_i for one packed symmetric block whose entry e sits at D[e s]
+template <int BS, typename T>
+TMR_HD T sym_row_strided(const T* D, int s, const T* v, int sv, int i,
+                         int bs) {
+  const int base = i * (i + 1) / 2;
+  T acc = D[base * s] * v[0];
+  if constexpr (BS > 0) {
+#pragma unroll
+    for (int j = 1; j < BS; ++j)
+      acc += D[(j <= i ? base + j : j * (j + 1) / 2 + i) * s] * v[j * sv];
+  } else {
+    for (int j = 1; j <= i; ++j) acc += D[(base + j) * s] * v[j * sv];
+    for (int j = i + 1; j < bs; ++j)
+      acc += D[(j * (j + 1) / 2 + i) * s] * v[j * sv];
+  }
+  return acc;
+}
+
+// The rank keeps its blocks and vectors knot-fastest: entry e of knot kl
+// at [e ld + kl] (ld = knots_max), of its upper block kl (U_{k0-1+kl}) at
+// [e (ld + 1) + kl], and the warps walk rows (kl, i) with kl fastest.  At
+// each step of a row's dot product a warp's threads read consecutive
+// words: no bank conflict, where rows read row-major would collide (U's
+// rows bs apart in the banks, the packed triangle's rows anywhere).  The
+// update alone walks the rows (k, i) with i fastest, so dx is written in
+// whole sectors.  BS > 0 builds the block size in (the plants' 12, and 24
+// = nx + m of the 6-DoF arm's generic path), as the register variant
+// does; BS = 0 reads it at run time.
+template <typename T, int BS = 0>
+struct ClRows {
+  int tid;
+  T part, part2;
+  T* x;  // the rank's rows of dx: only the thread of row g touches x_g
+  const T *D, *P, *U;
+  static constexpr bool CLUSTER = true;
+  static constexpr int MAX_NT = 768;   // 85 registers a thread
+  static TMR_HD int bsz(const Team<T>& tm) { return BS > 0 ? BS : tm.bs; }
+
+  // up to MAX_NT threads, the rows shared out evenly
+  static TMR_HD int threads(int N, int bs, int ranks) {
+    const int rows = knots_max(N, ranks) * bs,
+              per = (rows + MAX_NT - 1) / MAX_NT;
+    return round_warp((rows + per - 1) / per);
+  }
+  // every rank lays its memory out for knots_max knots, so a neighbour's
+  // block sits where it would sit in one's own
+  static TMR_HD Team<T> carve(T* m, const Src<T>&, int N, int bs, int nt,
+                              int rank, int ranks, ptrdiff_t stride) {
+    Team<T> t{};
+    const size_t nkm = knots_max(N, ranks), tri = (size_t)bs * (bs + 1) / 2,
+                 nv = nkm * bs;
+    t.N = N;
+    t.bs = bs;
+    t.nt = nt;
+    t.ld = (int)nkm;
+    t.rank = rank;
+    t.ranks = ranks;
+    t.stride = stride;
+    t.k0 = first_knot(N, ranks, rank);
+    t.nk = first_knot(N, ranks, rank + 1) - t.k0;
+    t.n = t.nk * bs;
+    t.D = m;
+    t.P = t.D + nkm * tri;
+    t.U = t.P + nkm * tri;
+    t.v = t.U + (nkm + 1) * bs * bs;
+    t.p = t.v + nv;
+    t.s = t.p + nv;
+    t.s0 = t.s + nv;
+    t.w = t.s0 + nv;
+    t.red = t.w + nv;
+    t.cl = t.red + 2 * WARPS;
+    if (rank > 0) {   // the previous rank's last knot
+      const int last = t.k0 - first_knot(N, ranks, rank - 1) - 1;
+      t.pprev = peer(t.p + last, t, rank - 1);
+      t.sprev = peer(t.s0 + last, t, rank - 1);
+    }
+    if (rank + 1 < ranks) {   // the next rank's first
+      t.pnext = peer(t.p, t, rank + 1);
+      t.snext = peer(t.s0, t, rank + 1);
+    }
+    return t;
+  }
+
+  // row (kl, i) of U_k v_{k+1} + U_{k-1}^T v_{k-1} (k = k0 + kl), the
+  // blocks past the rank's ends read from its neighbours
+  TMR_HD T off(const Team<T>& tm, const T* v, const T* prev, const T* next,
+               int kl, int i) const {
+    const int bs = bsz(tm), ld = tm.ld, su = ld + 1, k = tm.k0 + kl;
+    T acc = T(0);
+    if (k + 1 < tm.N)
+      acc = dot_strided<BS>(U + (kl + 1) + i * bs * su, su,
+                            kl + 1 < tm.nk ? v + kl + 1 : next, ld, bs);
+    if (k > 0)
+      acc += dot_strided<BS>(U + kl + i * su, bs * su,
+                             kl > 0 ? v + kl - 1 : prev, ld, bs);
+    return acc;
+  }
+  TMR_HD T prow(const Team<T>& tm, const T* v, int kl, int i) const {
+    return sym_row_strided<BS>(P + kl, tm.ld, v + kl, tm.ld, i, bsz(tm));
+  }
+
+  // the rank's operator into its shared memory, knot-fastest, converted
+  // once; r0 into v, p = 0, dx = 0
+  TMR_HD void load(const Team<T>& tm, const Src<T>& src, int t) {
+    tid = t;
+    part = part2 = T(0);
+    const int bs = bsz(tm), tri = bs * (bs + 1) / 2, bb = bs * bs, ld = tm.ld;
+    const size_t row0 = (size_t)tm.k0 * bs;
+    x = src.dx + row0;
+    const Stored<T> Ds = src.D + (size_t)tm.k0 * tri,
+                    Ps = src.P + (size_t)tm.k0 * tri;
+    for (int e = tid; e < tm.nk * tri; e += tm.nt) {
+      const int kl = e / tri, f = e - kl * tri;
+      tm.D[f * ld + kl] = Ds[e];
+      tm.P[f * ld + kl] = Ps[e];
+    }
+    // U_{k0-1} .. U_{k0+nk-1}; rank 0 has no U_{-1}
+    const size_t u0 = (size_t)tm.k0 * bb;
+    for (int e = (tm.k0 > 0 ? 0 : bb) + tid; e < (tm.nk + 1) * bb;
+         e += tm.nt) {
+      const int kl = e / bb, f = e - kl * bb;
+      tm.U[f * (ld + 1) + kl] = src.U[u0 + e - bb];
+    }
+    D = tm.D;
+    P = tm.P;
+    U = tm.U;
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int k = g / bs, at = (g - k * bs) * ld + k;
+      tm.v[at] = src.r0[row0 + g];
+      tm.p[at] = T(0);
+      x[g] = T(0);
+    }
+  }
+  TMR_HD void pstep(const Team<T>& tm, T beta) {
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int i = g / tm.nk, at = i * tm.ld + (g - i * tm.nk);
+      tm.p[at] = tm.s[at] + beta * tm.p[at];
+    }
+  }
+  TMR_HD void matvec(const Team<T>& tm) {
+    part = T(0);
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int i = g / tm.nk, kl = g - i * tm.nk, at = i * tm.ld + kl;
+      const T a = sym_row_strided<BS>(D + kl, tm.ld, tm.p + kl, tm.ld, i,
+                                      bsz(tm));
+      tm.w[at] = a + off(tm, tm.p, tm.pprev, tm.pnext, kl, i);
+      part += tm.p[at] * tm.w[at];
+    }
+  }
+  TMR_HD void update(const Team<T>& tm, T alpha) {
+    for (int g = tid; g < tm.n; g += tm.nt) {   // i fastest: dx in sectors
+      const int k = g / bsz(tm), at = (g - k * bsz(tm)) * tm.ld + k;
+      x[g] += alpha * tm.p[at];
+      tm.v[at] -= alpha * tm.w[at];
+    }
+  }
+  TMR_HD void pre_bj(const Team<T>& tm) {
+    part = part2 = T(0);
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int i = g / tm.nk, kl = g - i * tm.nk, at = i * tm.ld + kl;
+      tm.s[at] = prow(tm, tm.v, kl, i);
+      part += tm.v[at] * tm.s[at];
+      part2 += tm.v[at] * tm.v[at];
+    }
+  }
+  TMR_HD void pre_s0(const Team<T>& tm) {
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int i = g / tm.nk, kl = g - i * tm.nk;
+      tm.s0[i * tm.ld + kl] = prow(tm, tm.v, kl, i);
+    }
+  }
+  TMR_HD void pre_t(const Team<T>& tm) {
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int i = g / tm.nk, kl = g - i * tm.nk;
+      tm.w[i * tm.ld + kl] = off(tm, tm.s0, tm.sprev, tm.snext, kl, i);
+    }
+  }
+  TMR_HD void pre_ss(const Team<T>& tm) {
+    part = part2 = T(0);
+    for (int g = tid; g < tm.n; g += tm.nt) {
+      const int i = g / tm.nk, kl = g - i * tm.nk, at = i * tm.ld + kl;
+      tm.s[at] = tm.s0[at] - prow(tm, tm.w, kl, i);
+      part += tm.v[at] * tm.s[at];
+      part2 += tm.v[at] * tm.v[at];
+    }
+  }
+  TMR_HD void store(const Team<T>&, const Src<T>&) {}  // x is dx already
+};
+
 // ---- phases and block sums ------------------------------------------------
 #ifdef __CUDA_ARCH__
 template <typename T>
@@ -615,7 +917,41 @@ __device__ __forceinline__ void team_sum2(T& a, T& b, const Team<T>& tm) {
   b = __shfl_sync(0xffffffffu, warp_sum(in ? tm.red[WARPS + lane] : T(0)), 0);
 }
 
+// the cluster's sums of the blocks' sums v[0 .. nv-1]: thread 0 writes
+// them into slot `rank` of set `set` in every rank, a cluster barrier,
+// then every thread adds slots 0 .. C-1 in order
+template <typename T>
+__device__ __forceinline__ void cluster_sums(T* v, int nv, const Team<T>& tm,
+                                             int set) {
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  T* slots = tm.cl + set * 2 * CLUSTER_MAX;
+  if (threadIdx.x == 0)
+    for (int r = 0; r < tm.ranks; ++r) {
+      T* dst = cl.map_shared_rank(slots, (unsigned)r);
+      for (int j = 0; j < nv; ++j) dst[j * CLUSTER_MAX + tm.rank] = v[j];
+    }
+  cl.sync();
+  for (int j = 0; j < nv; ++j) {
+    T acc = slots[j * CLUSTER_MAX];
+    for (int r = 1; r < tm.ranks; ++r) acc += slots[j * CLUSTER_MAX + r];
+    v[j] = acc;
+  }
+}
+
+// the barrier after a phase whose writes another rank reads
+template <class Th>
+__device__ __forceinline__ void halo_barrier() {
+  if constexpr (Th::CLUSTER)
+    cooperative_groups::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// the card needs no record of the phases between two cluster barriers
+struct Segment {};
+
 #define TMR_OWN 0
+#define TMR_TM tm[0]
 #define TMR_TEAM_PHASE(CALL)          \
   do {                                \
     const int tid = threadIdx.x;      \
@@ -623,21 +959,35 @@ __device__ __forceinline__ void team_sum2(T& a, T& b, const Team<T>& tm) {
     CALL;                             \
     __syncthreads();                  \
   } while (0)
-#define TMR_TEAM_SUM_PHASE(CALL, OUT) \
+#define TMR_HALO_PHASE(CALL)          \
   do {                                \
     const int tid = threadIdx.x;      \
     (void)tid;                        \
     CALL;                             \
-    OUT = team_sum(th[0].part, tm);   \
+    halo_barrier<Th>();               \
   } while (0)
-#define TMR_TEAM_SUM2_PHASE(CALL, OUT, OUT2) \
-  do {                                       \
-    const int tid = threadIdx.x;             \
-    (void)tid;                               \
-    CALL;                                    \
-    OUT = th[0].part;                        \
-    OUT2 = th[0].part2;                      \
-    team_sum2(OUT, OUT2, tm);                \
+#define TMR_TEAM_SUM_PHASE(CALL, OUT, SET)                      \
+  do {                                                          \
+    const int tid = threadIdx.x;                                \
+    (void)tid;                                                  \
+    CALL;                                                       \
+    OUT = team_sum(th[0].part, tm[0]);                          \
+    if constexpr (Th::CLUSTER) cluster_sums(&OUT, 1, tm[0], SET); \
+  } while (0)
+#define TMR_TEAM_SUM2_PHASE(CALL, OUT, OUT2, SET) \
+  do {                                            \
+    const int tid = threadIdx.x;                  \
+    (void)tid;                                    \
+    CALL;                                         \
+    OUT = th[0].part;                             \
+    OUT2 = th[0].part2;                           \
+    team_sum2(OUT, OUT2, tm[0]);                  \
+    if constexpr (Th::CLUSTER) {                  \
+      T both[2] = {OUT, OUT2};                    \
+      cluster_sums(both, 2, tm[0], SET);          \
+      OUT = both[0];                              \
+      OUT2 = both[1];                             \
+    }                                             \
   } while (0)
 #else
 // the card's two trees, lane 0's sums, over the threads' partial sums
@@ -662,57 +1012,100 @@ T host_team_sum(const Th* th, int nt, T Th::*field) {
   return tree32(slot);
 }
 
-#define TMR_OWN tid
+// the cluster's sum: each rank's block sum, added in the ranks' order
+// (one rank: the block's sum)
+template <class Th, typename T>
+T host_sum(const Th* th, const Team<T>* tm, int ranks, T Th::*field) {
+  const int nt = tm[0].nt;
+  T acc = host_team_sum(th, nt, field);
+  for (int r = 1; r < ranks; ++r)
+    acc += host_team_sum(th + (size_t)r * nt, nt, field);
+  return acc;
+}
+
+// The phases since the last cluster barrier, each to run for every thread
+// of a rank: the host runs them rank by rank when a phase ends on a
+// cluster barrier (each rank as far ahead of the others as the barriers
+// let it run), ranks and threads in order (TMR_GROUP_REVERSE_TIDS: in
+// reverse).  With one rank, each phase runs as it comes.
+struct Segment {
+  std::vector<std::function<void(int, int)>> calls;
+  void run(int ranks, int nt) {
 #ifdef TMR_GROUP_REVERSE_TIDS
-#define TMR_TEAM_FOR for (int tid = tm.nt - 1; tid >= 0; --tid)
+    for (int rk = ranks - 1; rk >= 0; --rk)
+      for (auto& call : calls)
+        for (int tid = nt - 1; tid >= 0; --tid) call(rk, tid);
 #else
-#define TMR_TEAM_FOR for (int tid = 0; tid < tm.nt; ++tid)
+    for (int rk = 0; rk < ranks; ++rk)
+      for (auto& call : calls)
+        for (int tid = 0; tid < nt; ++tid) call(rk, tid);
 #endif
-#define TMR_TEAM_PHASE(CALL) \
-  do {                       \
-    TMR_TEAM_FOR CALL;       \
+    calls.clear();
+  }
+};
+
+#define TMR_OWN ((size_t)rk * tm[0].nt + tid)
+#define TMR_TM tm[rk]
+#define TMR_TEAM_PHASE(CALL)                                \
+  do {                                                      \
+    seg.calls.push_back([&](int rk, int tid) { CALL; });    \
+    if (ranks == 1) seg.run(ranks, tm[0].nt);               \
   } while (0)
-#define TMR_TEAM_SUM_PHASE(CALL, OUT)            \
-  do {                                           \
-    TMR_TEAM_FOR CALL;                           \
-    OUT = host_team_sum(th, tm.nt, &Th::part);   \
+#define TMR_HALO_PHASE(CALL)                                \
+  do {                                                      \
+    seg.calls.push_back([&](int rk, int tid) { CALL; });    \
+    seg.run(ranks, tm[0].nt);                               \
   } while (0)
-#define TMR_TEAM_SUM2_PHASE(CALL, OUT, OUT2)     \
-  do {                                           \
-    TMR_TEAM_FOR CALL;                           \
-    OUT = host_team_sum(th, tm.nt, &Th::part);   \
-    OUT2 = host_team_sum(th, tm.nt, &Th::part2); \
+#define TMR_TEAM_SUM_PHASE(CALL, OUT, SET)             \
+  do {                                                 \
+    TMR_HALO_PHASE(CALL);                              \
+    OUT = host_sum(th, tm, ranks, &Th::part);          \
+  } while (0)
+#define TMR_TEAM_SUM2_PHASE(CALL, OUT, OUT2, SET)      \
+  do {                                                 \
+    TMR_HALO_PHASE(CALL);                              \
+    OUT = host_sum(th, tm, ranks, &Th::part);          \
+    OUT2 = host_sum(th, tm, ranks, &Th::part2);        \
   } while (0)
 #endif
+
+// the sets of the cluster's slots: p'Ap's, and r's (with r'r)
+enum SumSet { SET_PAP = 0, SET_NU = 1 };
 
 // s = Pinv r, and the block's sum of r's (nu); with `rr`, r'r beside it
 // in the same tree
 template <typename T, class Th>
-TMR_HD void apply_P(Th* th, const Team<T>& tm, bool ss, bool rr, T& nu,
-                    T& rsq) {
+TMR_HD void apply_P(Th* th, const Team<T>* tm, int ranks, Segment& seg,
+                    bool ss, bool rr, T& nu, T& rsq) {
+  (void)ranks;
+  (void)seg;
   if (ss) {
-    TMR_TEAM_PHASE(th[TMR_OWN].pre_s0(tm));
-    TMR_TEAM_PHASE(th[TMR_OWN].pre_t(tm));
+    TMR_HALO_PHASE(th[TMR_OWN].pre_s0(TMR_TM));
+    TMR_TEAM_PHASE(th[TMR_OWN].pre_t(TMR_TM));
     if (rr)
-      TMR_TEAM_SUM2_PHASE(th[TMR_OWN].pre_ss(tm), nu, rsq);
+      TMR_TEAM_SUM2_PHASE(th[TMR_OWN].pre_ss(TMR_TM), nu, rsq, SET_NU);
     else
-      TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_ss(tm), nu);
+      TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_ss(TMR_TM), nu, SET_NU);
   } else if (rr) {
-    TMR_TEAM_SUM2_PHASE(th[TMR_OWN].pre_bj(tm), nu, rsq);
+    TMR_TEAM_SUM2_PHASE(th[TMR_OWN].pre_bj(TMR_TM), nu, rsq, SET_NU);
   } else {
-    TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_bj(tm), nu);
+    TMR_TEAM_SUM_PHASE(th[TMR_OWN].pre_bj(TMR_TM), nu, SET_NU);
   }
 }
 
 // The PCG of one scenario (pcg_fused_plain's loop); every thread of the
-// block runs it.  With `rr` (a preconditioner stored narrower than the
-// operands) the exit metric is r'r, else nu.  Returns the iterations taken.
+// block (of the cluster: tm holds each rank's Team on the host, the
+// block's own on the card) runs it.  With `rr` (a preconditioner stored
+// narrower than the operands) the exit metric is r'r, else nu.  Returns
+// the iterations taken.
 template <typename T, class Th>
-TMR_HD int pcg_block(Th* th, const Team<T>& tm, const Src<T>& src, bool ss,
-                     bool rr, bool relative, int max_iter, T tol) {
-  TMR_TEAM_PHASE(th[TMR_OWN].load(tm, src, tid));
+TMR_HD int pcg_block(Th* th, const Team<T>* tm, int ranks, const Src<T>& src,
+                     bool ss, bool rr, bool relative, int max_iter, T tol) {
+  (void)ranks;
+  Segment seg;
+  TMR_HALO_PHASE(th[TMR_OWN].load(TMR_TM, src, tid));
   T nu, rsq = T(0);
-  apply_P(th, tm, ss, rr, nu, rsq);
+  apply_P(th, tm, ranks, seg, ss, rr, nu, rsq);
   const T m0 = rr ? rsq : nu;
   T thr = tol;
   if (relative) {
@@ -723,20 +1116,20 @@ TMR_HD int pcg_block(Th* th, const Team<T>& tm, const Src<T>& src, bool ss,
   if (!(tabs(m0) <= thr)) {  // converged warm start: no pAp = 0 divide
     T beta = T(0);
     while (it < max_iter) {
-      TMR_TEAM_PHASE(th[TMR_OWN].pstep(tm, beta));
+      TMR_HALO_PHASE(th[TMR_OWN].pstep(TMR_TM, beta));
       T pAp;
-      TMR_TEAM_SUM_PHASE(th[TMR_OWN].matvec(tm), pAp);
+      TMR_TEAM_SUM_PHASE(th[TMR_OWN].matvec(TMR_TM), pAp, SET_PAP);
       const T alpha = nu / (pAp != T(0) ? pAp : T(1));
-      TMR_TEAM_PHASE(th[TMR_OWN].update(tm, alpha));
+      TMR_TEAM_PHASE(th[TMR_OWN].update(TMR_TM, alpha));
       T nu_new;
-      apply_P(th, tm, ss, rr, nu_new, rsq);
+      apply_P(th, tm, ranks, seg, ss, rr, nu_new, rsq);
       ++it;
       if (tabs(rr ? rsq : nu_new) <= thr) break;  // S is negative definite
       beta = nu_new / nu;           // on the flagship: nu and pAp keep any sign
       nu = nu_new;
     }
   }
-  TMR_TEAM_PHASE(th[TMR_OWN].store(tm, src));
+  TMR_HALO_PHASE(th[TMR_OWN].store(TMR_TM, src));
   return it;
 }
 
@@ -744,13 +1137,17 @@ TMR_HD int pcg_block(Th* th, const Team<T>& tm, const Src<T>& src, bool ss,
 template <typename T, class Th>
 __device__ __forceinline__ void run_block(const Args<T>& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Src<T> src = scenario(a, blockIdx.x);
+  int rank = 0;
+  if constexpr (Th::CLUSTER)
+    rank = (int)cooperative_groups::this_cluster().block_rank();
+  const size_t b = blockIdx.x / a.ranks;
+  const Src<T> src = scenario(a, b);
   const Team<T> tm = Th::carve(reinterpret_cast<T*>(smem_raw), src, a.N,
-                               a.bs, (int)blockDim.x);
+                               a.bs, (int)blockDim.x, rank, a.ranks, 0);
   Th th[1];
-  const int it = pcg_block<T>(th, tm, src, a.ss != 0, a.pcode != ST_SAME,
+  const int it = pcg_block<T>(th, &tm, 1, src, a.ss != 0, a.pcode != ST_SAME,
                               a.relative != 0, a.max_iter, a.tol);
-  if (threadIdx.x == 0) a.iters[blockIdx.x] = it;
+  if (rank == 0 && threadIdx.x == 0) a.iters[b] = it;
 }
 
 template <typename T, int BS>
@@ -769,52 +1166,125 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) pcg_global(const Args<T> a) {
   run_block<T, ShRows<T, true>>(a);
 }
 
+// one cluster of a.ranks blocks per scenario (the cluster dimension is set
+// at launch); BS as ClRows
+template <typename T, int BS>
+__global__ void __launch_bounds__(ClRows<T, BS>::MAX_NT, 1)
+pcg_cluster(const Args<T> a) {
+  run_block<T, ClRows<T, BS>>(a);
+}
+
+// the launch of variant v: B blocks, or for the cluster B clusters of
+// a.ranks blocks
 template <typename T, class Th>
-int launch(void (*kernel)(const Args<T>), const Args<T>& a, void* stream) {
-  const size_t bytes = smem_elems(a.N, a.bs, sizeof(T)) * sizeof(T);
+cudaLaunchConfig_t config(int v, const Args<T>& a, void* stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.B * a.ranks);
+  cfg.blockDim = dim3(Th::threads(a.N, a.bs, a.ranks));
+  cfg.dynamicSmemBytes = variant_smem_elems(v, a.N, a.bs, a.ranks) * sizeof(T);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  if (Th::CLUSTER) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = a.ranks;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+template <typename T, class Th>
+int launch(int v, void (*kernel)(const Args<T>), const Args<T>& a,
+           void* stream) {
+  if (a.B == 0) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<T, Th>(v, a, stream, &attr);
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      (int)cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.B, Th::threads(a.N, a.bs), bytes,
-           static_cast<cudaStream_t>(stream)>>>(a);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// clusters of the cluster variant for (N, bs) that the card can hold at
+// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error
+template <typename T, int BS>
+int max_clusters_of(int N, int bs) {
+  Args<T> a{};
+  a.B = 1;
+  a.N = N;
+  a.bs = bs;
+  a.ranks = cluster_size(N, bs, sizeof(T));
+  if (a.ranks == 0) return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      config<T, ClRows<T, BS>>(3, a, nullptr, &attr);
+  const void* kernel = (const void*)pcg_cluster<T, BS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg.dynamicSmemBytes);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T>
+int max_clusters(int N, int bs) {
+  switch (bs) {
+    case 12: return max_clusters_of<T, 12>(N, bs);
+    case 24: return max_clusters_of<T, 24>(N, bs);
+    default: return max_clusters_of<T, 0>(N, bs);
+  }
+}
+
 #define TMR_PCG_REGS(BS) \
-  return launch<T, RegRow<T, BS>>(pcg_regs<T, BS>, a, stream)
+  return launch<T, RegRow<T, BS>>(0, pcg_regs<T, BS>, a, stream)
+#define TMR_PCG_CLUSTER(BS) \
+  return launch<T, ClRows<T, BS>>(3, pcg_cluster<T, BS>, a, stream)
 #else
 template <typename T, class Th>
-int run_host(const Args<T>& a) {
-  const int nt = Th::threads(a.N, a.bs);
-  std::vector<T> mem(smem_elems(a.N, a.bs, sizeof(T)));
-  std::vector<Th> th(nt);
+int run_host(int v, const Args<T>& a) {
+  const int nt = Th::threads(a.N, a.bs, a.ranks);
+  const size_t per = variant_smem_elems(v, a.N, a.bs, a.ranks);
+  std::vector<T> mem(per * a.ranks);
+  std::vector<Th> th((size_t)nt * a.ranks);
+  std::vector<Team<T>> tm(a.ranks);
   for (int b = 0; b < a.B; ++b) {
     const Src<T> src = scenario(a, b);
-    const Team<T> tm = Th::carve(mem.data(), src, a.N, a.bs, nt);
-    a.iters[b] = pcg_block<T>(th.data(), tm, src, a.ss != 0,
+    for (int r = 0; r < a.ranks; ++r)
+      tm[r] = Th::carve(mem.data() + per * r, src, a.N, a.bs, nt, r, a.ranks,
+                        (ptrdiff_t)per);
+    a.iters[b] = pcg_block<T>(th.data(), tm.data(), a.ranks, src, a.ss != 0,
                               a.pcode != ST_SAME, a.relative != 0,
                               a.max_iter, a.tol);
   }
   return 0;
 }
 
-#define TMR_PCG_REGS(BS) return run_host<T, RegRow<T, BS>>(a)
+#define TMR_PCG_REGS(BS) return run_host<T, RegRow<T, BS>>(0, a)
+#define TMR_PCG_CLUSTER(BS) return run_host<T, ClRows<T, BS>>(3, a)
 #endif
 
-// the variant that takes (N, bs) in T; -1 for a shape or a workspace the
-// kernel cannot take
+// K4 by variant v (for values of `item` bytes, which set the cluster's
+// size); -1 for a shape, a variant or a workspace the kernel cannot take
 template <typename T>
 int launch_pcg(const void* diag_p, const void* upper, const void* pdiag_p,
                const void* r0, void* dx, void* iters, void* work, int B,
                int N, int bs, int dcode, int pcode, int ss, int relative,
-               int max_iter, double tol, void* stream) {
+               int max_iter, double tol, void* stream, int v, int item) {
   const Args<T> a{diag_p, pdiag_p, (const T*)upper, (const T*)r0, (T*)dx,
                   (T*)work, (int*)iters, B, N, bs, dcode, pcode, ss,
-                  relative, max_iter, (T)tol};
+                  relative, max_iter, (T)tol,
+                  v == 3 ? cluster_size(N, bs, item) : 1};
   (void)stream;
-  if ((long long)N * bs * bs > INDEX_LIMIT) return -1;
-  switch (variant(N, bs, sizeof(T))) {
+  if ((long long)N * bs * bs > INDEX_LIMIT || !takes(v, N, bs, item))
+    return -1;
+  switch (v) {
     case 0:
       switch (bs) {
         case 2: TMR_PCG_REGS(2);
@@ -828,41 +1298,67 @@ int launch_pcg(const void* diag_p, const void* upper, const void* pdiag_p,
       return -1;
     case 1:
 #ifdef __CUDACC__
-      return launch<T, ShRows<T, false>>(pcg_shared<T>, a, stream);
+      return launch<T, ShRows<T, false>>(1, pcg_shared<T>, a, stream);
 #else
-      return run_host<T, ShRows<T, false>>(a);
+      return run_host<T, ShRows<T, false>>(1, a);
 #endif
+    case 3:
+      switch (bs) {
+        case 12: TMR_PCG_CLUSTER(12);
+        case 24: TMR_PCG_CLUSTER(24);
+        default: TMR_PCG_CLUSTER(0);
+      }
     default:
       if (work == nullptr && B > 0) return -1;
 #ifdef __CUDACC__
-      return launch<T, ShRows<T, true>>(pcg_global<T>, a, stream);
+      return launch<T, ShRows<T, true>>(2, pcg_global<T>, a, stream);
 #else
-      return run_host<T, ShRows<T, true>>(a);
+      return run_host<T, ShRows<T, true>>(2, a);
 #endif
   }
 }
 #undef TMR_PCG_REGS
+#undef TMR_PCG_CLUSTER
 
 }  // namespace tmr_pcg
 
+// tmr_pcg_<f32|f64>: K4 by the variant that takes the shape;
+// tmr_pcg_<f32|f64>_as: by the variant given last (any that takes the
+// shape, to time one variant beside another; the solve path never calls it)
 #define TMR_PCG_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const void* diag_p, const void* upper,                  \
                       const void* pdiag_p, const void* r0, void* dx,          \
                       void* iters, void* work, int B, int N, int bs,          \
                       int dcode, int pcode, int ss, int relative,             \
                       int max_iter, double tol, void* stream) {               \
+    return tmr_pcg::launch_pcg<T>(                                            \
+        diag_p, upper, pdiag_p, r0, dx, iters, work, B, N, bs, dcode, pcode,  \
+        ss, relative, max_iter, tol, stream,                                  \
+        tmr_pcg::variant(N, bs, sizeof(T)), sizeof(T));                       \
+  }                                                                           \
+  extern "C" int NAME##_as(const void* diag_p, const void* upper,             \
+                           const void* pdiag_p, const void* r0, void* dx,     \
+                           void* iters, void* work, int B, int N, int bs,     \
+                           int dcode, int pcode, int ss, int relative,        \
+                           int max_iter, double tol, void* stream, int v) {   \
     return tmr_pcg::launch_pcg<T>(diag_p, upper, pdiag_p, r0, dx, iters,      \
                                   work, B, N, bs, dcode, pcode, ss, relative, \
-                                  max_iter, tol, stream);                     \
+                                  max_iter, tol, stream, v, sizeof(T));       \
   }
 TMR_PCG_ENTRY(tmr_pcg_f32, float)
 TMR_PCG_ENTRY(tmr_pcg_f64, double)
 #undef TMR_PCG_ENTRY
 
 // the variant that takes (N, bs) in values of `item` bytes: 0 registers,
-// 1 shared operator, 2 global operator (ops/fused_pcg.variant)
+// 1 shared operator, 2 global operator, 3 cluster (ops/fused_pcg.variant)
 extern "C" int tmr_pcg_variant(int N, int bs, int item) {
   return tmr_pcg::variant(N, bs, item);
+}
+
+// the blocks of the cluster variant's cluster at (N, bs): the smallest
+// that fits, 0 past CLUSTER_MAX blocks
+extern "C" int tmr_pcg_cluster_size(int N, int bs, int item) {
+  return tmr_pcg::cluster_size(N, bs, item);
 }
 
 // shared memory of one block, in values (ops/fused_pcg.smem_bytes)
@@ -873,6 +1369,26 @@ extern "C" long long tmr_pcg_smem_elems(int N, int bs, int item) {
 // the workspace of one scenario, in values (the global operator's vectors)
 extern "C" long long tmr_pcg_work_elems(int N, int bs, int item) {
   return (long long)tmr_pcg::work_elems(N, bs, item);
+}
+
+// the workspace of one scenario of variant v, in values (tmr_pcg_*_as)
+extern "C" long long tmr_pcg_variant_work_elems(int N, int bs, int v) {
+  return (long long)tmr_pcg::variant_work_elems(v, N, bs);
+}
+
+// cudaOccupancyMaxActiveClusters for the cluster variant at (N, bs) in
+// values of `item` bytes (minus a CUDA error; -1 for a shape it does not
+// take, and in the host build, which has no card)
+extern "C" int tmr_pcg_max_clusters(int N, int bs, int item) {
+#ifdef __CUDACC__
+  return item == 4 ? tmr_pcg::max_clusters<float>(N, bs)
+                   : tmr_pcg::max_clusters<double>(N, bs);
+#else
+  (void)N;
+  (void)bs;
+  (void)item;
+  return -1;
+#endif
 }
 
 // element i of a packed operand stored as `code`, widened to f64 (the

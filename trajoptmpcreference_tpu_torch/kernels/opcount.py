@@ -90,17 +90,18 @@ _PCG_ENTRY = r"""
 extern "C" long long count_pcg(const double* d, const double* up,
                                const double* pd, const double* r0, int B,
                                int N, int bs, int ss, int relative,
-                               int max_iter, double tol) {
+                               int max_iter, double tol, int item) {
   const size_t nD = (size_t)B * N * bs * (bs + 1) / 2,
                nU = (size_t)B * N * bs * bs, nR = (size_t)B * N * bs;
+  const int v = tmr_pcg::variant(N, bs, item);
   std::vector<Num> D = nums(d, nD), UP = nums(up, nU), PD = nums(pd, nD),
                    R0 = nums(r0, nR), DX(nR),
-                   W((size_t)B * tmr_pcg::work_elems(N, bs, sizeof(Num)));
+                   W((size_t)B * tmr_pcg::variant_work_elems(v, N, bs));
   std::vector<int> it(B);
   tmr_count::ops = 0;
   tmr_pcg::launch_pcg<Num>(D.data(), UP.data(), PD.data(), R0.data(),
                            DX.data(), it.data(), W.data(), B, N, bs, 0, 0,
-                           ss, relative, max_iter, tol, nullptr);
+                           ss, relative, max_iter, tol, nullptr, v, item);
   return tmr_count::ops;
 }
 """
@@ -172,7 +173,7 @@ def _library(name: str) -> ctypes.CDLL:
             build_all()
         lib = ctypes.CDLL(str(so))
         if name == "pcg":
-            lib.count_pcg.argtypes = [_P] * 4 + [_I] * 6 + [_D]
+            lib.count_pcg.argtypes = [_P] * 4 + [_I] * 6 + [_D, _I]
             lib.count_pcg.restype = ctypes.c_longlong
         elif name == "needed":
             lib.need_count.argtypes = [_I] + [_P] * 4 + [_I] * 4
@@ -231,21 +232,24 @@ def count_needed(name: str, packed, n: int) -> float:
 
 
 def _count_pcg_call(fn, diag_p, upper, pdiag_p, r0, ss, relative, max_iter,
-                    tol) -> int:
+                    tol, *extra) -> int:
     d, up, pd, r = (_f64(a) for a in (diag_p, upper, pdiag_p, r0))
     B, N, bs = r.shape
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     return int(fn(ptr(d), ptr(up), ptr(pd), ptr(r), B, N, bs, int(ss),
-                  int(relative), max_iter, float(tol)))
+                  int(relative), max_iter, float(tol), *extra))
 
 
 def count_pcg(diag_p, upper, pdiag_p, r0, *, ss: bool, relative: bool,
               max_iter: int, tol: float) -> int:
     """Operations K4 does in one call on these operands (ops/fused_pcg.py
-    layout), every thread of a block; the loop ends where each scenario's
-    data ends it."""
+    layout), every thread of a block (of each block of a cluster), in the
+    variant the operands' dtype takes at their shape; the loop ends where
+    each scenario's data ends it."""
+    item = (r0.element_size() if hasattr(r0, "element_size")
+            else np.asarray(r0).itemsize)
     return _count_pcg_call(_library("pcg").count_pcg, diag_p, upper, pdiag_p,
-                           r0, ss, relative, max_iter, tol)
+                           r0, ss, relative, max_iter, tol, item)
 
 
 def count_needed_pcg(diag_p, upper, pdiag_p, r0, *, ss: bool, relative: bool,

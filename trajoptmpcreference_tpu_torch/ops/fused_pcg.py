@@ -3,11 +3,13 @@
 Counterpart of trajoptmpcreference_tpu/ops/pallas_pcg.py.  The whole
 Krylov loop of a scenario runs inside one CUDA thread block
 (kernels/csrc/pcg.cu), where the XLA-style ``btridiag.pcg`` launches a
-dozen small ops per iteration.  Three variants (``variant``): two rows of
+dozen small ops per iteration.  Four variants (``variant``): two rows of
 the Schur system per thread with their rows of the operator and the
 preconditioner in registers; for other shapes, the operator in shared
-memory; for shapes over one block's shared memory, the operator in device
-memory and the vectors in a workspace.
+memory; for shapes over one block's shared memory, a cluster of up to 8
+blocks per scenario, each holding a run of knots, the operator spread
+over the cluster's shared memory (``cluster_size``); past 8 blocks' shared
+memory, the operator in device memory and the vectors in a workspace.
 
 The packed diagonal blocks and their inverses may be stored narrower than
 the operands (``make_batched_pcg``'s ``operator_dtype`` and
@@ -76,7 +78,7 @@ def _unpack_sym(packed, bs: int):
 # the storage of the packed diagonal blocks and their inverses, as pcg.cu
 # reads it (Storage): a dtype the same as the operands' is code 0
 STORAGE = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
-VARIANTS = ("registers", "shared operator", "global operator")
+VARIANTS = ("registers", "shared operator", "global operator", "cluster")
 # K4 indexes a scenario's upper blocks with an int
 INDEX_LIMIT = 2 ** 31 - 1
 
@@ -89,8 +91,17 @@ def _pcg_library():
 def variant(N: int, bs: int, dtype: torch.dtype, fn=None) -> int:
     """The K4 variant that takes (N, bs) in ``dtype`` (pcg.cu
     ``tmr_pcg_variant``, from the built library unless another build's
-    entry is given): 0 registers, 1 shared operator, 2 global operator."""
+    entry is given): 0 registers, 1 shared operator, 2 global operator,
+    3 cluster."""
     fn = fn or _pcg_library().tmr_pcg_variant
+    return int(fn(N, bs, dtype.itemsize))
+
+
+def cluster_size(N: int, bs: int, dtype: torch.dtype, fn=None) -> int:
+    """The blocks of the cluster variant's cluster at (N, bs) in ``dtype``
+    (pcg.cu ``tmr_pcg_cluster_size``): the smallest cluster whose blocks
+    each hold their run of knots, 0 past 8 blocks."""
+    fn = fn or _pcg_library().tmr_pcg_cluster_size
     return int(fn(N, bs, dtype.itemsize))
 
 
@@ -106,8 +117,8 @@ def smem_bytes(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> int:
 def check_fits(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> None:
     """Raise ValueError for a shape K4 cannot address: a scenario's upper
     blocks past its int index.  Every other shape takes a variant (the
-    global operator past one block's shared memory), whose block this
-    checks against the limit."""
+    cluster past one block's shared memory, the global operator past 8
+    blocks'), whose block this checks against the limit."""
     if N * bs * bs > INDEX_LIMIT:
         raise ValueError(
             f"K4 indexes a scenario's upper blocks with an int: N={N}, "
@@ -231,13 +242,15 @@ def _check_operands(diag_p, upper, pdiag_p, r0):
 
 
 def launch(fn, diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
-           max_iter: int, relative: bool, work_elems, stream=None):
+           max_iter: int, relative: bool, work_elems, stream=None,
+           variant=None):
     """Call a ``tmr_pcg_<f32|f64>`` entry (the card's library, or a g++
     build of pcg.cu on CPU tensors) on these operands: allocates dx, the
     iteration counts and the global operator's workspace (``work_elems``:
     the build's ``tmr_pcg_work_elems``), and raises on a nonzero return
-    (a CUDA error, or -1 for a shape the entry refuses).  Returns (dx,
-    iters)."""
+    (a CUDA error, a refused launch, or -1 for a shape the entry refuses).
+    With ``variant``, ``fn`` is a ``tmr_pcg_<f32|f64>_as`` entry, called
+    with it last.  Returns (dx, iters)."""
     B, N, bs = r0.shape
     dcode = storage_code(diag_p.dtype, r0.dtype)
     pcode = storage_code(pdiag_p.dtype, r0.dtype)
@@ -246,20 +259,24 @@ def launch(fn, diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
     per = int(work_elems(N, bs, r0.element_size()))
     work = torch.empty((B * per,), dtype=r0.dtype, device=r0.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t.numel() else None)
+    extra = () if variant is None else (int(variant),)
     rc = fn(ptr(diag_p), ptr(upper), ptr(pdiag_p), ptr(r0), ptr(dx),
             ptr(iters), ptr(work), B, N, bs, dcode, pcode,
             _precond_code(precond), int(relative), max_iter, float(tol),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(stream), *extra)
     if rc != 0:
         raise RuntimeError(f"kernel pcg failed: return code {rc}")
     return dx, iters
 
 
 def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
-                     max_iter: int, relative: bool):
-    """K4 on the card: one thread block per scenario; same arguments and
-    results as ``pcg_fused_plain``.  The packed blocks go to the kernel in
-    their storage dtype."""
+                     max_iter: int, relative: bool, variant=None):
+    """K4 on the card: one thread block (or cluster) per scenario; same
+    arguments and results as ``pcg_fused_plain``.  The packed blocks go to
+    the kernel in their storage dtype.  ``variant`` runs that variant in
+    place of the one the shape takes (raising if it cannot take the
+    shape): chip_smoke.py times one variant beside another with it; the
+    solve path never passes it."""
     _precond_code(precond)
     B, N, bs = _check_operands(diag_p, upper, pdiag_p, r0)
     if not B:
@@ -267,10 +284,15 @@ def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
                 torch.empty((0,), dtype=torch.int32, device=r0.device))
     lib = _pcg_library()
     suffix = "f32" if r0.dtype == torch.float32 else "f64"
-    dx, iters = launch(getattr(lib, f"tmr_pcg_{suffix}"), diag_p, upper,
-                       pdiag_p, r0, precond=precond, tol=tol,
-                       max_iter=max_iter, relative=relative,
-                       work_elems=lib.tmr_pcg_work_elems,
+    if variant is None:
+        fn, work = getattr(lib, f"tmr_pcg_{suffix}"), lib.tmr_pcg_work_elems
+    else:
+        fn = getattr(lib, f"tmr_pcg_{suffix}_as")
+        work = (lambda N, bs, _item:
+                lib.tmr_pcg_variant_work_elems(N, bs, variant))
+    dx, iters = launch(fn, diag_p, upper, pdiag_p, r0, precond=precond,
+                       tol=tol, max_iter=max_iter, relative=relative,
+                       work_elems=work, variant=variant,
                        stream=torch.cuda.current_stream(r0.device).cuda_stream)
     pcg_fused_kernel.launches += 1
     return dx, iters
