@@ -19,11 +19,11 @@ Phases (each prints its own numbers; any failure exits non-zero):
    systems at B = 512, N = 64, bs = 12 (20 fixed iterations, and run to
    convergence against cyclic reduction), on ragged batches, in f64, at
    each block size its register variant is built for (bs = 2-14, each at
-   the most rows that variant takes), at block sizes its shared-operator
-   variant reads at run time, at the first design's largest shapes (N =
-   156 in f32, 78 in f64, bs = 12; these at 12 fixed iterations), and at
-   N = 256 in f64 (the cluster variant: a shape the shared-memory limit
-   refused until K4 had its third variant);
+   the most rows that variant takes), at block sizes its cluster variant
+   reads at run time (one block), at the first design's largest shapes (N
+   = 156 in f32, 78 in f64, bs = 12: one block; these at 12 fixed
+   iterations), and at N = 256 in f64 (a cluster of 4: a shape the
+   shared-memory limit refused until K4 had its cluster variant);
 4. each kernel's time beside its plain version's and its bound, median of
    20, with two timers (kernels/timing.py): CUDA events around one call
    (``ms``, the yardstick of earlier runs) and device time behind a spin
@@ -168,30 +168,36 @@ Phases (each prints its own numbers; any failure exits non-zero):
 23. K4's storage dtypes (make_batched_pcg's precond_dtype /
    operator_dtype): K4 on operands stored narrow (bf16 or f16 inverses,
    bf16 inverses and blocks, f32 under f64 operands; J, BJ and SS at B =
-   512, N = 64, bs = 12, and the shared operator at bs = 5) against
+   512, N = 64, bs = 12, and a one-block cluster at bs = 5) against
    pcg_fused_plain on the same stored operands, fixed iterations under
    phase 3's bars and run to convergence on the true residual r'r with
    equal iteration counts; on the flagship's cold-start Schur systems the
    f32 residuals, gap to the exact solution and iterations with bf16
    inverses beside f32 ones (reported);
-24. K4 beyond one block's shared memory: the cluster variant (one
-   thread-block cluster of C <= 8 blocks per scenario, the operator in
-   the cluster's shared memory) on random SPD and negative-definite
-   systems, BJ and SS, in f32 at (N, bs) = (64, 24), (256, 12), (1,024,
-   12) and in f64 at (64, 24), (256, 12), and the global operator (past 8
-   blocks) at (2,048, 12) f32, against pcg_fused_plain under phase 3's
-   bars with equal counts; for each C the clusters resident at once
-   (cudaOccupancyMaxActiveClusters) and the shared memory per block; the
-   cluster and the global variants timed in turn at (64, 24) and (256,
-   12) f32 beside the bound, and the shared-operator variant beside a
-   one-block cluster at (128, 12); the generic (bs = 24) Schur operator
-   of the torque-limited
+24. K4 past the register variant's shapes: the cluster variant (one
+   thread-block cluster of C <= 16 blocks per scenario, the operator in
+   the cluster's shared memory; non-portable past 8) on random SPD and
+   negative-definite systems, BJ and SS, at (N, bs) = (128, 12) (the
+   shared operator's former shape: one block in f32, two in f64), (64,
+   24), (256, 12), (1,024, 12) in f32 and f64 and (2,048, 12) f32 at B = 8
+   (13 blocks), and the global operator past 16 blocks (a cluster of 16,
+   its operator converted into a workspace in device memory) at (4,096,
+   12) f32 and (1,280, 12) f64, B = 8, and at (8,192, 12) f64 (its
+   vectors in the workspace too), against pcg_fused_plain after 3 and 20
+   fixed iterations under phase 3's bars with equal counts (3: before the
+   solve converges, where a halo race shows); for each shape the
+   clusters resident at once
+   (cudaOccupancyMaxActiveClusters), the shared memory per block and the
+   workspace; the two variants timed in turn at (64, 24), (256, 12) and
+   (2,048, 12), and alone at (128, 12), (4,096, 12) and (1,280, 12) f64,
+   beside the bound (and the re-read floor where the operators exceed
+   L2); the generic (bs = 24) Schur operator of the torque-limited
    flagship's cold QP in f64 under phase 8's bar (f32 residuals
-   reported); one cold PCG-SS solve of the long-horizon flagship (N =
-   256, 3.84 s) through K1-K4 in f64 against K4's plain version under
-   phase 5's bar, with a K4 exiting a decade early above it, and the f32
-   solve's events time and launches; the last two through the cluster
-   variant;
+   reported); one cold PCG-SS solve of the flagship at N = 128 and at N =
+   256 (1.92 s and 3.84 s) through K1-K4 in f64 against K4's plain
+   version under phase 5's bar, with a K4 exiting a decade early above
+   it, and the f32 solve's events time and launches (through one block
+   at N = 128, a cluster of 2 at 256);
 25. the examples (trajoptmpcreference_tpu_torch.examples) on the card,
    each printing its own lines: mpc_arm6 as shipped (N = 64, 100 steps,
    QP-PCG-SS) and with --torque-limit 6, in f64 (the final end-effector
@@ -296,17 +302,28 @@ NATIVE_TOL = {"fd": 1e-10, "fd_grad": 1e-10, "ee_pos": 1e-12, "Jqd": 1e-7}
 # iteration apart (their exit met inside f32 rounding)
 STORAGE_CONV_TOL = {"torch.float32": 1e-8, "torch.float64": 1e-12}
 STORAGE_EDGE = 0.01
-# phase 24: K4's cluster variant (the shapes over one block's shared
-# memory, up to 8 blocks') on random systems, (dtype, N, bs, B), and its
-# global operator past 8 blocks; the shapes each variant is timed at (the
-# shared operator's first times); the long-horizon flagship (N = 256, dt
-# = 0.015: 3.84 s); its planted fault exits a decade early
-CLUSTER_SHAPES = [("float32", 64, 24, 512), ("float32", 256, 12, 512),
+# phase 24: K4's cluster variant (the shapes past the register variant's,
+# up to 16 blocks' shared memory) on random systems, (dtype, N, bs, B): one
+# block at (128, 12) f32, 2-7 blocks, 13 at (2,048, 12); its global
+# operator past 16 blocks, the last with its vectors in the workspace;
+# the shapes timed, (dtype, N, bs, B, the variants taken in turn); the
+# H100's L2, past which the operators' re-read floor is given; the
+# long-horizon flagships (dt = 0.015: 1.92 s and 3.84 s), whose planted
+# fault exits a decade early
+CLUSTER_SHAPES = [("float32", 128, 12, 512), ("float64", 128, 12, 512),
+                  ("float32", 64, 24, 512), ("float32", 256, 12, 512),
                   ("float32", 1024, 12, 64), ("float64", 64, 24, 512),
-                  ("float64", 256, 12, 512)]
-GLOBAL_SHAPE = ("float32", 2048, 12, 8)
-CLUSTER_TIMED, SHARED_TIMED = ((64, 24), (256, 12)), (128, 12)
-LONG_N, EARLY_EXIT_X = 256, 10.0
+                  ("float64", 256, 12, 512), ("float32", 2048, 12, 8)]
+GLOBAL_SHAPES = [("float32", 4096, 12, 8), ("float64", 1280, 12, 8),
+                 ("float64", 8192, 12, 2)]
+PCG_TIMED = [("float32", 64, 24, 512, (3, 2)),
+             ("float32", 256, 12, 512, (3, 2)),
+             ("float32", 128, 12, 512, (3,)),
+             ("float32", 2048, 12, 8, (3, 2)),
+             ("float32", 4096, 12, 8, (2,)),
+             ("float64", 1280, 12, 8, (2,))]
+L2_BYTES = 50e6   # the H100's L2
+LONG_NS, EARLY_EXIT_X = (128, 256), 10.0
 # phase 25: the JAX package's mpc_arm6 on the CPU in f64 (N = 64, 100
 # steps, QP-PCG-SS; tests/examples_reference.py): final end-effector error
 # and max |u| applied, without and with the torque limit of 6
@@ -398,20 +415,22 @@ def main():
             + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_regsI{t}Li12E")
             + f"; dynamic shared memory {FP.smem_bytes(N, PCG_BS, dt)} bytes "
             f"per block at N={N}, bs={PCG_BS}")
-        log(f"[ptxas] pcg shared-operator variant ({tag}): "
-            + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_sharedI{t}E")
-            + f"; dynamic shared memory {FP.smem_bytes(156, PCG_BS, dt)} "
-            f"bytes per block at N=156, bs={PCG_BS}")
-        log(f"[ptxas] pcg global-operator variant ({tag}): "
-            + ptxas_summary(_build.ptxas_report("pcg"), f"pcg_globalI{t}E")
-            + f"; dynamic shared memory {FP.smem_bytes(2048, PCG_BS, dt)} "
-            f"bytes per block at N=2048, bs={PCG_BS}")
         log(f"[ptxas] pcg cluster variant ({tag}, bs={PCG_BS}): "
             + ptxas_summary(_build.ptxas_report("pcg"),
-                            f"pcg_clusterI{t}Li{PCG_BS}E")
+                            f"pcg_clusterI{t}Li{PCG_BS}ELb0ELb1E")
             + f"; dynamic shared memory {FP.smem_bytes(256, PCG_BS, dt)} "
             f"bytes per block at N=256, bs={PCG_BS} "
             f"({FP.cluster_size(256, PCG_BS, dt)} blocks a scenario)")
+        log(f"[ptxas] pcg cluster variant, one block ({tag}, bs={PCG_BS}): "
+            + ptxas_summary(_build.ptxas_report("pcg"),
+                            f"pcg_clusterI{t}Li{PCG_BS}ELb0ELb0E")
+            + f"; dynamic shared memory {FP.smem_bytes(78, PCG_BS, dt)} "
+            f"bytes per block at N=78, bs={PCG_BS}")
+        log(f"[ptxas] pcg global operator ({tag}, bs={PCG_BS}): "
+            + ptxas_summary(_build.ptxas_report("pcg"),
+                            f"pcg_clusterI{t}Li{PCG_BS}ELb1ELb1E")
+            + f"; dynamic shared memory {FP.smem_bytes(4096, PCG_BS, dt)} "
+            f"bytes per block at N=4096, bs={PCG_BS} (16 blocks a scenario)")
 
     # ---- 3. kernels vs plain versions (f32, on the card)
     plant = URDFPlant(robot=serial_arm(6))
@@ -653,8 +672,9 @@ def main():
     # ---- 23. K4's storage dtypes
     storage_dtypes(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev)
 
-    # ---- 24. K4 beyond one block's shared memory: the global operator,
-    # the generic path's operator and the long-horizon flagship
+    # ---- 24. K4 past the register variant's shapes: the cluster, the
+    # global operator, the generic path's operator and the long-horizon
+    # flagships
     beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
                   events_ms, device_ms, x0s_np, goals_np, dev)
 
@@ -1208,9 +1228,9 @@ def check_pcg(torch, BT, FP, dev):
                 f"{rel:.3e} (limit {PCG_TOL:.0e})")
             assert rel < PCG_TOL, (pre, Bn, Nn, rel)
     # each block size the register variant is built for, at the most rows
-    # it takes; block sizes the shared-operator variant reads at run time;
-    # the first design's largest shapes (the shared-operator variant at a
-    # built block size)
+    # it takes; block sizes the cluster variant reads at run time (one
+    # block); the first design's largest shapes (one block at a built block
+    # size)
     regs = lambda Nn, bs, dt=f32: FP.VARIANTS[FP.variant(Nn, bs, dt)]
     largest = lambda bs: max(Nn for Nn in range(1, 1025)
                              if FP.variant(Nn, bs, f32) == 0)
@@ -1598,7 +1618,7 @@ def storage_dtypes(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
     pcg_fused_plain on the same stored operands: J, BJ and SS at B = 512,
     N = 64, bs = 12 with bf16 or f16 inverses, and bf16 inverses and
     blocks, in f32; f32 storage under f64 operands; bf16 inverses at the
-    shared operator's bs = 5.  PCG_FIXED_ITERS fixed iterations under the
+    one-block cluster's bs = 5.  PCG_FIXED_ITERS fixed iterations under the
     phase-3 bars, then both run to convergence on the true residual r'r
     (STORAGE_CONV_TOL) under the same bars, with equal iteration counts:
     in f64 in every scenario; in f32 in all but at most STORAGE_EDGE of
@@ -1683,97 +1703,108 @@ def k4_as(FP, fn):
 
 def beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
                   events_ms, device_ms, x0s_np, goals_np, dev):
-    """Phase 24.  K4 on the shapes the first two variants refuse: the
-    cluster variant (variant 3: a cluster of C blocks per scenario, the
-    operator in their shared memory) at CLUSTER_SHAPES and the global
-    operator (variant 2: the packed blocks in device memory, the vectors
-    in a workspace) past 8 blocks at GLOBAL_SHAPE, on random SPD and
-    negative-definite systems, BJ and SS, PCG_FIXED_ITERS fixed iterations
+    """Phase 24.  K4 past the register variant's shapes: the cluster
+    variant (variant 3: a cluster of C <= 16 blocks per scenario, one where
+    it fits, the operator in their shared memory) at CLUSTER_SHAPES and the
+    global operator (variant 2: a cluster of 16 whose operator is
+    converted once into a workspace in device memory) past 16 blocks at
+    GLOBAL_SHAPES, on random SPD and negative-definite systems, BJ and SS,
+    3 (before the solve converges) and PCG_FIXED_ITERS fixed iterations
     against pcg_fused_plain under the phase-3 bars with equal counts; for
-    each C, the clusters the card holds at once and the shared memory per
-    block; the cluster and the global variants timed in turn (through
-    pcg_fused_kernel's ``variant``) at CLUSTER_TIMED in f32, and the shared
-    operator beside a cluster of one block at SHARED_TIMED, beside the
-    bound; the generic (bs = 24) Schur operator of the torque-limited
-    flagship's cold QP in f64 under phase 8's bar; and the long-horizon (N
-    = 256) PCG-SS flagship's cold solve through K4 against K4's plain
-    version in f64 under phase 5's bar."""
+    each shape, the clusters the card
+    holds at once, the shared memory per block and the workspace; the
+    variants timed in turn (through pcg_fused_kernel's ``variant``) at
+    PCG_TIMED, beside the bound and, where the B operators exceed L2, the
+    re-read floor; the generic (bs = 24) Schur operator of the
+    torque-limited flagship's cold QP in f64 under phase 8's bar; and the
+    long-horizon (N = 128, 256) PCG-SS flagship's cold solves through K4
+    against K4's plain version in f64 under phase 5's bar."""
     from trajoptmpcreference_tpu_torch.kernels import _build
     fixed = dict(tol=0.0, max_iter=PCG_FIXED_ITERS, relative=False)
     lib = _build.library("pcg")
-    for dname, Nn, bs, Bn in CLUSTER_SHAPES + [GLOBAL_SHAPE]:
+    for dname, Nn, bs, Bn in CLUSTER_SHAPES + GLOBAL_SHAPES:
         dt = getattr(torch, dname)
-        limit = PCG_TOL if dt == torch.float32 else 1e-10
-        variant, C = FP.variant(Nn, bs, dt), FP.cluster_size(Nn, bs, dt)
-        want = 2 if (dname, Nn, bs, Bn) == GLOBAL_SHAPE else 3
+        item, limit = dt.itemsize, PCG_TOL if dt == torch.float32 else 1e-10
+        variant = FP.variant(Nn, bs, dt)
+        want = 2 if (dname, Nn, bs, Bn) in GLOBAL_SHAPES else 3
         assert variant == want, (Nn, bs, dname, variant)
-        if variant == 3:
-            # the kernel built for this block size (0: read at run time)
-            mangled = (f"pcg_clusterI{'f' if dname == 'float32' else 'd'}"
-                       f"Li{bs if bs in (12, 24) else 0}E")
-            log(f"[cluster] {dname} N={Nn} bs={bs}: C={C} blocks a scenario, "
-                f"{FP.smem_bytes(Nn, bs, dt)} bytes of shared memory per "
-                f"block; {lib.tmr_pcg_max_clusters(Nn, bs, dt.itemsize)} "
-                f"clusters resident at once (cudaOccupancyMaxActiveClusters)"
-                f"; ptxas "
-                + ptxas_summary(_build.ptxas_report("pcg"), mangled))
+        C = FP.cluster_size(Nn, bs, dt) if variant == 3 else min(Nn, 16)
+        # the kernel built for this block size (0: read at run time)
+        mangled = (f"pcg_clusterI{'f' if dname == 'float32' else 'd'}"
+                   f"Li{bs if bs in (12, 24) else 0}ELb{int(variant == 2)}"
+                   f"ELb{int(C > 1)}E")
+        work = item * int(lib.tmr_pcg_work_elems(Nn, bs, item))
+        where = (f"{FP.VARIANTS[variant]} of {C} blocks, "
+                 f"{FP.smem_bytes(Nn, bs, dt)} bytes of shared memory per "
+                 f"block, {work} bytes of workspace a scenario")
+        log(f"[{'cluster' if variant == 3 else 'global'}] {dname} N={Nn} "
+            f"bs={bs}: {where}; "
+            f"{lib.tmr_pcg_max_clusters(Nn, bs, item)} clusters resident "
+            f"at once (cudaOccupancyMaxActiveClusters); ptxas "
+            + ptxas_summary(_build.ptxas_report("pcg"), mangled))
         for sign, kind in ((1.0, "spd"), (-1.0, "negdef")):
             S, b = random_systems(torch, BT, Bn, Nn, bs, 50 + Nn + bs, sign,
                                   dt, dev)
             for pre in ("BJ", "SS"):
                 ops = FP.pack_operands(S, b, pre)
-                out, it = FP.pcg_fused_kernel(*ops, precond=pre, **fixed)
-                ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **fixed)
-                torch.cuda.synchronize()
-                rel = rel_err(out, ref)
-                log(f"[{'cluster' if variant == 3 else 'global'}] pcg {pre} "
-                    f"{kind} {dname} B={Bn} N={Nn} bs={bs}"
-                    f" ({FP.VARIANTS[variant]}"
-                    + (f" of {C} blocks" if variant == 3 else "")
-                    + f", {FP.smem_bytes(Nn, bs, dt)} bytes of shared memory"
-                    f" per block): {PCG_FIXED_ITERS} iterations "
-                    f"max|d|/max|ref| = {rel:.3e} (limit {limit:.0e}), "
-                    f"iteration counts equal {torch.equal(it, it_ref)}")
-                assert bool(torch.isfinite(out).all())
-                assert torch.equal(it, it_ref), (pre, kind, dname, Nn, bs)
-                assert rel < limit, (pre, kind, dname, Nn, bs, rel)
+                # 3 iterations: before the solve converges, where a halo
+                # race shows; then PCG_FIXED_ITERS
+                for iters in (3, PCG_FIXED_ITERS):
+                    kw = dict(fixed, max_iter=iters)
+                    out, it = FP.pcg_fused_kernel(*ops, precond=pre, **kw)
+                    ref, it_ref = FP.pcg_fused_plain(*ops, precond=pre, **kw)
+                    torch.cuda.synchronize()
+                    rel = rel_err(out, ref)
+                    log(f"[{'cluster' if variant == 3 else 'global'}] pcg "
+                        f"{pre} {kind} {dname} B={Bn} N={Nn} bs={bs} "
+                        f"({where}): {iters} iterations max|d|/max|ref| = "
+                        f"{rel:.3e} (limit {limit:.0e}), iteration counts "
+                        f"equal {torch.equal(it, it_ref)}")
+                    assert bool(torch.isfinite(out).all())
+                    assert torch.equal(it, it_ref), (pre, kind, dname, Nn,
+                                                     bs, iters)
+                    assert rel < limit, (pre, kind, dname, Nn, bs, iters,
+                                         rel)
             del S, b, ops, out, ref
     times = {}
     kw = dict(precond="SS", tol=0.0, max_iter=40, relative=False)
-    for Nn, bs in CLUSTER_TIMED + (SHARED_TIMED,):
-        S, b = random_systems(torch, BT, B, Nn, bs, 91, 1.0, torch.float32,
-                              dev)
+    for dname, Nn, bs, Bn, variants in PCG_TIMED:
+        dt = getattr(torch, dname)
+        S, b = random_systems(torch, BT, Bn, Nn, bs, 91, 1.0, dt, dev)
         ops = FP.pack_operands(S, b, "SS")
+        del S, b
         t_plain = events_ms(lambda: FP.pcg_fused_plain(*ops, **kw))
         bnd, by, need, did, hist = pcg_bound(torch, opcount, FP, ops, kw)
-        # in turn: one variant, the other, the other, the one again; at
-        # SHARED_TIMED the shared operator beside a cluster of one block
-        # (the cluster variant's layout without a second rank)
-        order = (3, 2, 2, 3) if (Nn, bs) in CLUSTER_TIMED else (1, 3, 3, 1)
+        op_bytes = Bn * Nn * (bs * (bs + 1) + bs * bs) * dt.itemsize
+        floor = (f"; the operators' {op_bytes} bytes exceed L2: re-read "
+                 f"floor {1e3 * op_bytes * kw['max_iter'] / PEAK_BYTES:.4f} "
+                 "ms" if op_bytes > L2_BYTES else "")
+        # in turn: one variant, the other, the other, the one again
         got = collections.defaultdict(list)
-        for v in order:
+        for v in variants + variants[::-1]:
             call = lambda: FP.pcg_fused_kernel(*ops, variant=v, **kw)
             got[v].append((events_ms(call), device_ms(call)))
         for v, runs in got.items():
             t_ev = min(r[0] for r in runs)
             t_dev = min(r[1] for r in runs)
-            times[(Nn, bs, v)] = (t_ev, t_dev, t_plain, bnd, by)
+            times[(dname, Nn, bs, v)] = (t_ev, t_dev, t_plain, bnd, by)
             beside = ", in turn with the other" if len(got) > 1 else ""
-            name = FP.VARIANTS[v] + (
-                f" (C = {FP.cluster_size(Nn, bs, torch.float32)})"
-                if v == 3 else "")
-            log(f"[time] pcg {name} B={B} N={Nn} bs={bs} SS 40 "
-                f"iterations: kernel {t_ev:.4f} ms events, {t_dev:.4f} ms "
-                f"device (the lower of {len(runs)} medians of 20{beside}: "
-                f"device " + ", ".join(f"{r[1]:.4f}" for r in runs)
+            C = FP.cluster_size(Nn, bs, dt) if v == 3 else min(Nn, 16)
+            log(f"[time] pcg {FP.VARIANTS[v]} (C = {C}) {dname} B={Bn} "
+                f"N={Nn} bs={bs} SS 40 iterations: kernel {t_ev:.4f} ms "
+                f"events, {t_dev:.4f} ms device (the lower of {len(runs)} "
+                f"medians of 20{beside}: device "
+                + ", ".join(f"{r[1]:.4f}" for r in runs)
                 + f"); plain {t_plain:.4f} ms events; bound {bnd:.4f} ms "
                 f"({by}; the function needs {need} operations "
                 f"(kernels/needed_ops.cpp), the variant the shape takes "
                 f"does {did}; iterations {json.dumps(hist)}), "
-                f"{100 * bnd / t_dev:.1f}% of bound in device time")
-        del S, b, ops
+                f"{100 * bnd / t_dev:.1f}% of bound in device time{floor}")
+        del ops
     generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev)
-    long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev)
+    for n_long in LONG_NS:
+        long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np,
+                     dev, n_long)
     return times
 
 
@@ -1828,8 +1859,9 @@ def generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
             assert all(math.isfinite(v) for v in r), (pre, label, r)
 
 
-def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
-    """One cold PCG-SS solve of the long-horizon flagship (N = LONG_N,
+def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev,
+                 long_n):
+    """One cold PCG-SS solve of the long-horizon flagship (N = long_n,
     dt = 0.015, B = 512, PCG_KNOBS, use_kernel_pcg) through K1-K4: in f64
     with K4 on against K4's plain version in its place (k4_as), equal exit
     codes and SQP iterations, max|dU|/max|U| under phase 5's bar (the
@@ -1839,7 +1871,7 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     f32 solve's events time (median of 3) and K1-K4's launches are
     reported, and its time with K4's global operator in the cluster
     variant's place (k4_as), taken in turn.  K4 takes the cluster variant
-    in both dtypes."""
+    in both dtypes (at N = 128 one block in f32, two in f64)."""
     kernel, plain = FP.pcg_fused_kernel, FP.pcg_fused_plain
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -1855,16 +1887,16 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     def problem(dt):
         x0s = torch.as_tensor(x0s_np, dtype=dt, device=dev)
         goals = torch.as_tensor(goals_np, dtype=dt, device=dev)
-        X0 = x0s[..., None].expand(B, 12, LONG_N).contiguous()
-        U0 = torch.zeros((B, 6, LONG_N - 1), dtype=dt, device=dev)
-        _, cost, solver = F.flagship(N=LONG_N, dtype=dt, device=dev,
+        X0 = x0s[..., None].expand(B, 12, long_n).contiguous()
+        U0 = torch.zeros((B, 6, long_n - 1), dtype=dt, device=dev)
+        _, cost, solver = F.flagship(N=long_n, dtype=dt, device=dev,
                                      use_kernel_pcg=True, **F.PCG_KNOBS)
         return solver, X0, U0, cost.default_params._replace(xg=goals)
 
     solver, X0, U0, params = problem(torch.float64)
     bs = solver.kkt.bs
     for dt in (torch.float64, torch.float32):
-        assert FP.variant(LONG_N, bs, dt) == 3, dt
+        assert FP.variant(long_n, bs, dt) == 3, dt
     sols = {}
     for key, fn in (("on", kernel), ("off", plain), ("ulp", moved),
                     ("fault", early)):
@@ -1877,9 +1909,9 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     a = sols["on"]
     exits_eq = torch.equal(a.exit_sqp, b.exit_sqp)
     iters_eq = torch.equal(a.sqp_iters, b.sqp_iters)
-    log(f"[long] PCG-SS flagship N={LONG_N} (horizon {LONG_N * F.DT:.2f} s) "
+    log(f"[long] PCG-SS flagship N={long_n} (horizon {long_n * F.DT:.2f} s) "
         f"B={B} bs={bs} cold solve, f64 (K4's cluster variant of "
-        f"{FP.cluster_size(LONG_N, bs, torch.float64)} blocks): "
+        f"{FP.cluster_size(long_n, bs, torch.float64)} blocks): "
         f"K4 vs its plain version max|dU|/max|U| = {rel:.3e}; plain with "
         f"its output moved one ulp {floor:.3e}; bar {bar:.3e} (max of "
         f"{SOLVE_BAR:.0e} and {SOLVE_FLOOR_X} x the one-ulp gap); K4 exiting "
@@ -1906,8 +1938,8 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev):
     with k4_as(FP, lambda *a, **kw: kernel(*a, variant=2, **kw)):
         t_global = events_ms(solve, reps=3)
     t_again = events_ms(solve, reps=3)
-    log(f"[long] PCG-SS flagship N={LONG_N} B={B} cold solve, f32 (K4's "
-        f"cluster variant of {FP.cluster_size(LONG_N, bs, torch.float32)} "
+    log(f"[long] PCG-SS flagship N={long_n} B={B} cold solve, f32 (K4's "
+        f"cluster variant of {FP.cluster_size(long_n, bs, torch.float32)} "
         f"blocks): {t:.3f} ms events (median of 3; {t_again:.3f} after "
         f"the global operator's turn); with K4's global operator in its "
         f"place {t_global:.3f} ms; launches K1 "

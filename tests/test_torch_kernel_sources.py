@@ -17,9 +17,9 @@ block's lanes in order and in reverse, over every robot shape (the
 branched tree with the end effector on each leaf) at 1e-12 in f64.  K4
 spreads the rows of S over a block's threads: its host
 build runs each phase for the block's threads in turn, in order and in
-reverse, for each block size it is built for, for the shared-operator
-variant (any other block size, or more rows than the register variant
-takes), for N = 1 and ragged N.  The shared-memory sizes come from the
+reverse, for each block size it is built for, for a cluster of one block
+(any other block size, or more rows than the register variant takes),
+for N = 1 and ragged N.  The shared-memory sizes come from the
 kernels' own formulas,
 which the wrappers read from the libraries; K4's accepts every shape the
 first design's did.  The functions behind chip_smoke.py's bounds
@@ -325,27 +325,33 @@ def test_operation_counts_follow_the_code():
 def test_operation_counts_follow_the_cluster_code(host_libs):
     """kernels/opcount.py counts the variant the operands' dtype takes: at
     (N, bs) = (1024, 12) f32 operands take a cluster of 7 blocks, f64 ones
-    the global operator (past 8 blocks).  Both do the same arithmetic per
-    row; a block's sum over w warps is 31 (w + 1) additions (a tree per
-    warp and one over the slots).  Each of the cluster's sums adds 7
-    blocks' sums of 19 warps (147 knots a rank, 1,764 rows, 3 a thread:
-    608 threads) in order, 7 x 620 + 6 = 4,346 additions, where the global
-    operator adds one block's of 32 warps, 1,023: 3,323 more a sum.  Two
-    scenarios, one converged before its first iteration (one sum, r's),
-    the other taking k fixed iterations (1 + 2 k sums: p'Ap and r's)."""
-    ops = _pcg_problem(2, 1024, 12, seed=3, precond="SS")
-    f32 = [t.float() for t in ops]
+    a cluster of 13; at (1280, 12) f32 a cluster of 8, f64 the global
+    operator (16 blocks).  All do the same arithmetic per row; a block's
+    sum over w warps is 31 (w + 1) additions (a tree per warp and one over
+    the slots), and a cluster's adds its C blocks' sums in order.  At
+    1,024: 7 ranks of 147 knots (1,764 rows, 3 a thread: 608 threads, 19
+    warps), 7 x 620 + 6 = 4,346 additions a sum; 13 of 79 (948 rows, 2 a
+    thread: 480 threads, 15 warps), 13 x 496 + 12 = 6,460, 2,114 more.  At
+    1,280: 8 of 160 (1,920 rows, 640 threads, 20 warps), 8 x 651 + 7 =
+    5,215; 16 of 80 (960 rows, 480 threads), 16 x 496 + 15 = 7,951, 2,736
+    more.  Two scenarios, one converged before its first iteration (one
+    sum, r's), the other taking k fixed iterations (1 + 2 k sums: p'Ap and
+    r's)."""
     var, csize = host_libs["pcg_variant"], host_libs["pcg_cluster_size"]
-    assert FP.variant(1024, 12, torch.float32, var) == 3
-    assert FP.cluster_size(1024, 12, torch.float32, csize) == 7
-    assert FP.variant(1024, 12, torch.float64, var) == 2
     kw = dict(ss=True, relative=False, tol=0.0)
-    for k in (0, 3, 6):
-        cl = opcount.count_pcg(*f32, max_iter=k, **kw)
-        gl = opcount.count_pcg(*ops, max_iter=k, **kw)
-        assert cl - gl == 3_323 * (2 + 2 * k), (k, cl, gl)
-    c = [opcount.count_pcg(*f32, max_iter=k, **kw) for k in (0, 3, 6)]
-    assert c[2] - c[1] == c[1] - c[0] > 0
+    for N, sizes, more in ((1024, (7, 13), 2_114), (1280, (8, 0), 2_736)):
+        ops = _pcg_problem(2, N, 12, seed=3, precond="SS")
+        f32 = [t.float() for t in ops]
+        assert FP.variant(N, 12, torch.float32, var) == 3
+        assert FP.cluster_size(N, 12, torch.float32, csize) == sizes[0]
+        assert FP.variant(N, 12, torch.float64, var) == (3 if sizes[1] else 2)
+        assert FP.cluster_size(N, 12, torch.float64, csize) == sizes[1]
+        for k in (0, 3, 6):
+            cl = opcount.count_pcg(*f32, max_iter=k, **kw)
+            wide = opcount.count_pcg(*ops, max_iter=k, **kw)
+            assert wide - cl == more * (2 + 2 * k), (N, k, cl, wide)
+        c = [opcount.count_pcg(*f32, max_iter=k, **kw) for k in (0, 3, 6)]
+        assert c[2] - c[1] == c[1] - c[0] > 0
 
 
 def _pcg_problem(B, N, bs, seed, precond, shift=4.0):
@@ -392,11 +398,58 @@ def _run_pcg(fn, ops, precond, relative, max_iter, tol, host_libs):
 
 
 # (bs, N): each block size the register variant is built for (N = 1, odd
-# and ragged N), the shared-operator variant at block sizes read at run
-# time and at built ones over the register variant's rows (bs = 12 past
-# 768 rows, bs = 2 past 1,024)
+# and ragged N), a cluster of one block at block sizes read at run time
+# and at built ones over the register variant's rows (bs = 12 past 768
+# rows, bs = 2 past 1,024)
 PCG_SHAPES = [(2, 1), (2, 37), (4, 5), (6, 11), (8, 3), (10, 13), (12, 1),
               (12, 63), (14, 9), (1, 6), (3, 17), (5, 1), (12, 70), (2, 515)]
+
+
+def _plain_extended(diag_p, upper, pdiag_p, r0, *, precond, tol, max_iter,
+                    relative):
+    """pcg_fused_plain's loop in numpy's extended precision (np.longdouble:
+    80-bit on x86-64): the f64 solve's own reference where rounding is
+    amplified (at (2, 515) with J, pcg_fused_plain itself ends 7.9e-10 of
+    the solution's scale from it)."""
+    L = np.longdouble
+    bs = r0.shape[-1]
+    D, P = (FP._unpack_sym(t, bs).numpy().astype(L) for t in (diag_p, pdiag_p))
+    U, r = upper[:, :-1].numpy().astype(L), r0.numpy().astype(L)
+    bmv = lambda A, v: np.einsum("bkij,bkj->bki", A, v)
+    dot = lambda a, b: (a * b).sum((-1, -2))
+
+    def off(v):
+        y = np.zeros_like(v)
+        y[:, :-1] += bmv(U, v[:, 1:])
+        y[:, 1:] += np.einsum("bkji,bkj->bki", U, v[:, :-1])
+        return y
+
+    def apply_P(r):
+        s = bmv(P, r)
+        return s - bmv(P, off(s)) if precond == "SS" else s
+
+    x, s = np.zeros_like(r), apply_P(r)
+    p, nu = s, dot(r, s)
+    thr = (np.maximum(tol * np.abs(nu), L(1e-30)) if relative
+           else np.full_like(nu, tol))
+    done, it = np.abs(nu) <= thr, np.zeros(nu.shape, dtype=np.int64)
+    for _ in range(max_iter):
+        if done.all():
+            break
+        Ap = bmv(D, p) + off(p)
+        pAp = dot(p, Ap)
+        alpha = (nu / np.where(pAp != 0, pAp, L(1)))[:, None, None]
+        keep = done[:, None, None]
+        x = np.where(keep, x, x + alpha * p)
+        r = np.where(keep, r, r - alpha * Ap)
+        s = apply_P(r)
+        nu_new = np.where(done, nu, dot(r, s))
+        it = np.where(done, it, it + 1)
+        done = done | (np.abs(nu_new) <= thr)
+        beta = np.where(done, L(0), nu_new / np.where(done, L(1), nu))
+        p = np.where(done[:, None, None], p, s + beta[:, None, None] * p)
+        nu = nu_new
+    return x, it
 
 
 @pytest.mark.parametrize("order", ["pcg", "pcg_reversed"])
@@ -405,26 +458,33 @@ PCG_SHAPES = [(2, 1), (2, 37), (4, 5), (6, 11), (8, 3), (10, 13), (12, 1),
 def test_host_compiled_pcg_variants_match_plain(bs, N, precond, order,
                                                 host_libs):
     """K4's phases, thread by thread in order and in reverse, for each
-    variant and block size, against pcg_fused_plain in f64: equal iteration
+    variant and block size, and pcg_fused_plain, each against the plain
+    loop in extended precision (_plain_extended) in f64: equal iteration
     counts, 1e-9 of each scenario's scale (the same loop, sums in another
     order; up to 80 iterations on up to 1,030 rows, where J's conditioning
-    carries the rounding to ~1e-9, most cases agree to ~1e-15); the
-    absolute exit for J and SS, the relative one for BJ."""
+    carries f64's rounding to ~1e-9 in either, most cases agree to
+    ~1e-15); the absolute exit for J and SS, the relative one for BJ."""
     B, max_iter, relative = 4, 80, precond == "BJ"
     tol = 1e-14 if relative else 1e-10
     ops = _pcg_problem(B, N, bs, seed=10 * bs + N, precond=precond, shift=0.5)
     dx, iters = _run_pcg(host_libs[order], ops, precond, relative, max_iter,
                          tol, host_libs)
-    ref, ref_iters = FP.pcg_fused_plain(*ops, precond=precond, tol=tol,
-                                        max_iter=max_iter, relative=relative)
-    assert iters.tolist() == ref_iters.tolist()
+    kw = dict(precond=precond, tol=tol, max_iter=max_iter, relative=relative)
+    plain, plain_iters = FP.pcg_fused_plain(*ops, **kw)
+    ref, ref_iters = _plain_extended(*ops, **kw)
+    assert iters.tolist() == plain_iters.tolist() == ref_iters.tolist()
     assert iters[0] == 0 and torch.equal(dx[0], torch.zeros_like(dx[0]))
     for k in range(1, B):
-        np.testing.assert_allclose(dx[k].numpy(), ref[k].numpy(), rtol=0,
-                                   atol=1e-9 * float(ref[k].abs().max()))
+        scale = float(np.abs(ref[k]).max())
+        for got in (dx[k], plain[k]):
+            err = float(np.abs(got.numpy().astype(np.longdouble)
+                               - ref[k]).max())
+            assert err <= 1e-9 * scale, (k, err / scale)
     regs = bs % 2 == 0 and bs <= 14 and N * bs <= (1024 if bs <= 8 else 768)
     assert FP.variant(N, bs, torch.float64, host_libs["pcg_variant"]) == (
-        0 if regs else 1)
+        0 if regs else 3)
+    assert FP.cluster_size(N, bs, torch.float64,
+                           host_libs["pcg_cluster_size"]) == 1
 
 
 @pytest.mark.parametrize("N", [1, 7, 64])
@@ -477,13 +537,14 @@ def test_host_compiled_pcg_shared_memory_size(host_libs):
     """The wrapper's size is the kernel's own formula (pcg.cu
     tmr_pcg_smem_elems, read through the library), for the variant each
     shape takes in each dtype: the register variant (3 N bs + 4 bs values
-    and two reduction slots per warp), the shared operator (the system,
-    four vectors and the slots) and the global operator (the slots alone);
-    the flagship fits in a tenth of the first design's 95,364 bytes, and a
-    shape over one block's shared memory takes the cluster variant (a run
-    of knots, one upper block more, five vectors, the block's and the
-    cluster's reduction slots), and one past 8 blocks' the global
-    operator, whose blocks fit."""
+    and two reduction slots per warp), the cluster variant (a run of
+    knots, one upper block more, five vectors, the block's and the
+    cluster's reduction slots: 64 + 4 x 16; one block where that fits,
+    with four vectors and the block's slots), and the global operator (a
+    rank's five vectors and the slots); the
+    flagship fits in a tenth of the first design's 95,364 bytes, and a
+    shape past 16 blocks' shared memory takes the global operator, whose
+    blocks fit."""
     smem, var = host_libs["pcg_smem_elems"], host_libs["pcg_variant"]
     for N, bs in ((1, 1), (7, 12), (64, 12), (63, 5), (157, 12), (256, 12)):
         for dtype in (torch.float32, torch.float64):
@@ -494,16 +555,15 @@ def test_host_compiled_pcg_shared_memory_size(host_libs):
             nk = -(-N // C)
             assert elems == {
                 0: 3 * N * bs + 4 * bs + 64,
-                1: 2 * N * tri + N * bs * bs + 4 * N * bs + 64,
-                2: 64,
-                3: 2 * nk * tri + (nk + 1) * bs * bs + 5 * nk * bs + 96,
+                3: 2 * nk * tri + (nk + 1) * bs * bs + (
+                    4 * nk * bs + 64 if C == 1 else 5 * nk * bs + 128),
             }[FP.variant(N, bs, dtype, var)]
     assert FP.smem_bytes(64, 12, torch.float32, smem) == 9_664
     FP.check_fits(64, 12, torch.float64, smem)
     assert FP.variant(4 * 64, 12, torch.float64, var) == 3
     FP.check_fits(4 * 64, 12, torch.float64, smem)
     assert FP.variant(1280, 12, torch.float64, var) == 2
-    assert smem(1280, 12, 8) == 64
+    assert smem(1280, 12, 8) == 5 * 80 * 12 + 128
     FP.check_fits(1280, 12, torch.float64, smem)
 
 

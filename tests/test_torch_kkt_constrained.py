@@ -267,14 +267,13 @@ def test_condensed_operator_matches_generic(name):
 
 def test_kernel_pcg_sizes_on_the_generic_path(tmp_path):
     """K4 on the generic path's block size: the flagship's six torques as
-    hard rows there make bs = 12 + 12 = 24, which K4's shared-operator
-    variant holds up to N = 45 in f32 and N = 22 in f64 (its size formula,
-    from a g++ build of pcg.cu), bs = 18 up to 78 / 39 and bs = 30 up to
-    29 / 14; one block row more, and the flagship's N = 64 at bs = 24 and
-    30, take the cluster variant (a cluster of blocks per scenario, the
-    operator spread over their shared memory), and check_fits raises at
-    none of them; the condensed core (bs = 12) takes the register
-    variant."""
+    hard rows there make bs = 12 + 12 = 24, which K4's cluster variant
+    holds in one block up to N = 45 in f32 and N = 22 in f64 (its size
+    formula, from a g++ build of pcg.cu), bs = 18 up to 78 / 38 and bs =
+    30 up to 29 / 14; one block row more, and the flagship's N = 64 at bs
+    = 24 and 30, take a cluster of more blocks per scenario (the operator
+    spread over their shared memory), and check_fits raises at none of
+    them; the condensed core (bs = 12) takes the register variant."""
     so = tmp_path / "libpcg.so"
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
                     "-fPIC", "-o", str(so), str(_build.CSRC / "pcg.cu")],
@@ -282,14 +281,17 @@ def test_kernel_pcg_sizes_on_the_generic_path(tmp_path):
     lib = ctypes.CDLL(str(so))
     _build.bind_pcg_shapes(lib)
     elems, var = lib.tmr_pcg_smem_elems, lib.tmr_pcg_variant
+    size = lib.tmr_pcg_cluster_size
     for bs, dtype, n_max in ((24, torch.float32, 45), (24, torch.float64, 22),
-                             (18, torch.float32, 78), (18, torch.float64, 39),
+                             (18, torch.float32, 78), (18, torch.float64, 38),
                              (30, torch.float32, 29), (30, torch.float64, 14)):
         FP.check_fits(n_max, bs, dtype, elems)
-        assert FP.variant(n_max, bs, dtype, var) == 1
+        assert FP.variant(n_max, bs, dtype, var) == 3
+        assert FP.cluster_size(n_max, bs, dtype, size) == 1
         for n in {n_max + 1, max(n_max + 1, 64)}:
             FP.check_fits(n, bs, dtype, elems)
             assert FP.variant(n, bs, dtype, var) == 3, (bs, dtype, n)
+            assert FP.cluster_size(n, bs, dtype, size) >= 2, (bs, dtype, n)
     for dtype in (torch.float32, torch.float64):
         FP.check_fits(64, 12, dtype, elems)
         assert FP.variant(64, 12, dtype, var) == 0

@@ -253,25 +253,26 @@ def pcg_lib(tmp_path_factory):
 def test_fused_shared_memory_limit_raises(pcg_lib):
     """The variant boundaries at bs = 12: the register variant up to 768
     rows of S (N = 64, the flagship, with its block under 10 KB), the
-    shared operator from N = 65 while its system and vectors fit one
-    block's 232,448 bytes (N = 166 in f32, 83 in f64), the cluster from
-    one block row more while each of 8 blocks holds its run of knots (N =
-    1,280 in f32, 640 in f64), the global operator past that; check_fits
-    raises at none of them, only past K4's int index."""
+    cluster from N = 65, one block while its knots, four vectors and the
+    block's slots fit 232,448 bytes (N = 166 in f32, 82 in f64; the shared
+    operator took these shapes up to 166 / 83), then the fewest blocks up
+    to 16 (N = 2,560 in f32, 1,264 in f64), the global operator past that;
+    check_fits raises at none of them, only past K4's int index."""
     var, smem = pcg_lib.tmr_pcg_variant, pcg_lib.tmr_pcg_smem_elems
+    size = pcg_lib.tmr_pcg_cluster_size
     assert FP.smem_bytes(64, 12, torch.float32, smem) < 10_000
-    for dtype, n_shared, n_cluster in ((torch.float32, 166, 1280),
-                                       (torch.float64, 83, 640)):
-        for N, want in ((64, 0), (65, 1), (n_shared, 1), (n_shared + 1, 3),
-                        (n_cluster, 3), (n_cluster + 1, 2), (4096, 2)):
+    for dtype, n_one, n_cluster in ((torch.float32, 166, 2560),
+                                    (torch.float64, 82, 1264)):
+        for N, want, C in ((64, 0, 1), (65, 3, 1), (n_one, 3, 1),
+                           (n_one + 1, 3, 2), (n_cluster, 3, 16),
+                           (n_cluster + 1, 2, 0), (4096, 2, 0)):
             assert FP.variant(N, 12, dtype, var) == want, (dtype, N)
+            assert FP.cluster_size(N, 12, dtype, size) == C, (dtype, N)
             FP.check_fits(N, 12, dtype, smem)
-        assert FP.smem_bytes(n_shared, 12, dtype, smem) <= FP.SMEM_LIMIT
-        assert (dtype.itemsize * (2 * (n_shared + 1) * 78 + (n_shared + 1)
-                                  * 144 + 4 * 12 * (n_shared + 1) + 64)
+        assert FP.smem_bytes(n_one, 12, dtype, smem) <= FP.SMEM_LIMIT
+        assert (dtype.itemsize * (2 * (n_one + 1) * 78 + (n_one + 2) * 144
+                                  + 4 * 12 * (n_one + 1) + 64)
                 > FP.SMEM_LIMIT)
-        assert FP.cluster_size(n_cluster, 12, dtype,
-                               pcg_lib.tmr_pcg_cluster_size) == 8
     with pytest.raises(ValueError, match="with an int"):
         FP.check_fits(2 ** 31 // 144 + 1, 12, torch.float32, smem)
 

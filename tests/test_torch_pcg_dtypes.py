@@ -8,7 +8,12 @@ held to JAX's Pallas kernel in interpret mode (its own CPU route) for J,
 BJ and SS with bf16 and f16 storage, alone and together: B = 1 (JAX's
 tile is then the scenario, so the iteration counts compare one to one),
 N = 8, bs = 4, f32, 1e-5 of max|x| with equal iteration counts; and f32
-storage under f64 operands at 1e-10.  Inputs are numpy, from seeds.
+storage under f64 operands at 1e-10.  Inputs are numpy, from seeds.  On
+one of the flagship's own cold Schur systems (N = 64, bs = 12) with bf16
+inverses the two agree at 1e-10 in f64 (tests/pcg_bf16_reference.py
+prints the whole comparison), and the solution is lost by the method,
+not the port: the bf16-rounded inverses of those negative-definite
+blocks are indefinite.
 """
 
 import jax
@@ -17,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from pcg_bf16_reference import cold_system, jax_kernel, operands
 from trajoptmpcreference_tpu.ops import btridiag as jbtd
 from trajoptmpcreference_tpu.ops.pallas_pcg import make_batched_pcg as jax_batched_pcg
 from trajoptmpcreference_tpu_torch.ops import btridiag as tbtd
@@ -136,3 +142,37 @@ def test_wider_storage_raises():
                    None)
     x0, it0 = _torch(diag, upper, b, guess, torch.float32, kw, None, None)
     assert it == it0 and np.array_equal(x, x0)
+
+
+def test_bf16_inverses_on_the_flagship_cold_system():
+    """The PCG-SS flagship's cold Schur system (its first QP, N = 64, bs =
+    12, bench scenario 0; pcg_bf16_reference.cold_system), widened to f64
+    with its packed inverses stored in bf16 (SS, the true-residual exit,
+    relative 1e-4): after 5 fixed iterations the port's plain version and
+    JAX's kernel in interpret mode agree to 1e-10 of max|x| with equal
+    counts (one JAX compile).  The loss of the solution is the method's:
+    every diagonal block is negative definite (condition up to ~6e7), and
+    its bf16-rounded inverse has a positive eigenvalue, so the
+    preconditioner is indefinite; at the solver's 40 iterations the port
+    ends over half the solution's scale from it (cyclic reduction in f64)
+    with bf16 inverses, and under a third with the inverses in f64."""
+    S, gam, kw = cold_system()
+    ops = operands(S, gam, torch.float64)
+    fixed = dict(kw, max_iter=5)
+    x, it = FP.pcg_fused_plain(*ops, **fixed)
+    jx, jit_ = jax_kernel(ops, fixed)
+    assert int(it[0]) == jit_ == 5
+    x = x[0].numpy()
+    assert float(np.abs(x - jx).max() / np.abs(jx).max()) < 1e-10
+    d, _, p, _ = ops
+    ev_d = torch.linalg.eigvalsh(FP._unpack_sym(d, 12)[0])
+    ev_p = torch.linalg.eigvalsh(FP._unpack_sym(p.double(), 12)[0])
+    assert bool((ev_d < 0).all())
+    assert bool((ev_p.amax(-1) > 0).any())
+    exact = tbtd.btd_cyclic_reduction(
+        tbtd.BlockTridiag(S.diag.double(), S.upper.double()), gam.double())
+    gap = lambda x: float((x - exact).abs().max() / exact.abs().max())
+    x_bf16, _ = FP.pcg_fused_plain(*ops, **kw)
+    x_own, _ = FP.pcg_fused_plain(*operands(S, gam, torch.float64,
+                                            torch.float64), **kw)
+    assert gap(x_bf16) > 0.5 and gap(x_own) < 0.3, (gap(x_bf16), gap(x_own))

@@ -1,15 +1,16 @@
-"""K4 beyond one block's shared memory, and its storage codes, compiled as
-plain C++ and run on the CPU.
+"""K4 beyond the register variant's shapes, and its storage codes,
+compiled as plain C++ and run on the CPU.
 
 kernels/csrc/pcg.cu without __CUDACC__ runs each phase for every thread
 of the block in turn (and, built with -DTMR_GROUP_REVERSE_TIDS, in
-reverse); in the cluster variant it runs the ranks of a scenario's
-cluster one by one, each as far ahead of the others as the cluster
-barriers let it (in reverse, the last rank first).  So g++ checks the
-cluster variant (a run of knots per rank, the halos read from the
-neighbours' memory), the global-operator variant (the packed blocks in
-device memory, the vectors in a workspace the wrapper allocates) and the
-narrow storage decoders against ``pcg_fused_plain``:
+reverse); in a cluster it runs the ranks of a scenario's cluster one by
+one, each as far ahead of the others as the cluster barriers let it (in
+reverse, the last rank first).  So g++ checks the cluster variant (a run
+of knots per rank, the halos read from the neighbours' memory; one block
+where it fits), the global operator (the same cluster of 16 blocks with
+its operator converted into a workspace the wrapper allocates, and its
+vectors there too past shared memory) and the narrow storage decoders
+against ``pcg_fused_plain``:
 
 * shapes over one block's shared memory, at a small batch, in the
   cluster variant: (N, bs) = (200, 12) in f32 (2 blocks; 1e-4 of each
@@ -19,17 +20,27 @@ narrow storage decoders against ``pcg_fused_plain``:
   fixed iterations, before the solve converges, where a halo read before
   its neighbour wrote it, or after it moved on, shows; and 1e-9 with equal
   iteration counts run to convergence: the same loop, sums in another
-  order), and N = 1,280 at bs = 12 in f32 (8 blocks), whose four vectors
-  alone (245,760 bytes) exceed one block's 232,448;
-* the global operator past 8 blocks' shared memory, N = 1,280 at bs = 12
-  in f64, and through the entry that runs a given variant at small
+  order), N = 1,280 at bs = 12 in f32 (8 blocks), whose four vectors
+  alone (245,760 bytes) exceed one block's 232,448, and clusters past the
+  portable 8 blocks: (1,024, 12) and (200, 24) in f64 (13 and 10 blocks);
+* the global operator past 16 blocks' shared memory, N = 1,280 at bs = 12
+  in f64 (its vectors in shared memory) and N = 7,800 (its vectors in the
+  workspace), and through the entry that runs a given variant at small
   shapes, with the storage codes;
+* a build with a planted halo fault (no cluster barrier after SS's s0)
+  fails the f64 check at 3 fixed iterations, in the cluster and in the
+  global operator;
 * bf16 and f16 storage of the blocks and of their inverses in each
   variant, the loop exiting on the true residual r'r when the inverses are
   stored narrow (f64 operands, 1e-9, equal counts);
 * the decoders bit pattern by bit pattern against PyTorch's casts, and the
   variant each shape takes at each boundary.
 """
+
+# the planted fault: SS's s0 phase ends on the block's barrier, not the
+# cluster's, so its neighbours' t reads their halo before it is written
+HALO_PHASE = "TMR_HALO_PHASE(th[TMR_OWN].pre_s0(TMR_TM));"
+HALO_FAULT = "TMR_TEAM_PHASE(th[TMR_OWN].pre_s0(TMR_TM));"
 
 import ctypes
 import shutil
@@ -60,15 +71,23 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """pcg.cu built by g++, in thread order and in reverse."""
+    """pcg.cu built by g++, in thread order and in reverse, and a copy
+    with the planted halo fault (in thread order)."""
     out = tmp_path_factory.mktemp("pcg_large")
+    source = (_build.CSRC / "pcg.cu").read_text()
+    assert source.count(HALO_PHASE) == 1
+    faulty = out / "pcg_halo_fault.cu"
+    faulty.write_text(source.replace(HALO_PHASE, HALO_FAULT))
     procs = {}
-    for key, flags in (("pcg", []), ("pcg_reversed",
-                                     ["-DTMR_GROUP_REVERSE_TIDS"])):
+    for key, flags, src in (
+            ("pcg", [], _build.CSRC / "pcg.cu"),
+            ("pcg_reversed", ["-DTMR_GROUP_REVERSE_TIDS"],
+             _build.CSRC / "pcg.cu"),
+            ("pcg_halo_fault", [], faulty)):
         so = out / f"lib{key}.so"
         procs[key] = (subprocess.Popen(
             ["g++", "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-             *flags, "-o", str(so), str(_build.CSRC / "pcg.cu")],
+             *flags, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     found = {}
     for key, (proc, so) in procs.items():
@@ -107,16 +126,21 @@ def _host(lib, ops, variant=None, **kw):
         return FP.launch(getattr(lib, f"tmr_pcg_{sfx}"), *ops,
                          work_elems=lib.tmr_pcg_work_elems, **kw)
     return FP.launch(getattr(lib, f"tmr_pcg_{sfx}_as"), *ops,
-                     work_elems=lambda N, bs, _item:
-                     lib.tmr_pcg_variant_work_elems(N, bs, variant),
+                     work_elems=lambda N, bs, item:
+                     lib.tmr_pcg_variant_work_elems(N, bs, item, variant),
                      variant=variant, **kw)
+
+
+def _errors(dx, ref):
+    """max|d|/max|ref| of each scenario past the first (whose r0 is 0)."""
+    return [float((dx[k] - ref[k]).abs().max() / ref[k].abs().max())
+            for k in range(1, dx.shape[0])]
 
 
 def _hold(dx, it, ref, it_ref, bar):
     assert it.tolist() == it_ref.tolist()
     assert torch.equal(dx[0], torch.zeros_like(dx[0]))
-    for k in range(1, dx.shape[0]):
-        err = float((dx[k] - ref[k]).abs().max() / ref[k].abs().max())
+    for k, err in enumerate(_errors(dx, ref), start=1):
         assert err < bar, (k, err)
 
 
@@ -146,7 +170,7 @@ def _hold_fixed_and_converged(lib, ops, precond, dtype, variant=None):
                                         (400, 5, torch.float64)])
 @pytest.mark.parametrize("precond", ["BJ", "SS"])
 def test_global_operator_matches_plain(precond, N, bs, dtype, order, libs):
-    """The shapes over one block's shared memory, which the global
+    """The shapes over one block's shared memory, which the first global
     operator took until the cluster variant took them (2, 2, 8, 4 and 2
     blocks a scenario; bs = 12 and 24 built in, bs = 5 read at run time),
     against pcg_fused_plain in thread-and-rank order and reversed
@@ -165,28 +189,83 @@ def test_global_operator_matches_plain(precond, N, bs, dtype, order, libs):
 @pytest.mark.parametrize("order", ["pcg", "pcg_reversed"])
 @pytest.mark.parametrize("precond", ["BJ", "SS"])
 def test_global_operator_past_eight_blocks(precond, order, libs):
-    """N = 1,280 at bs = 12 in f64, past 8 blocks' shared memory, takes
-    the global operator; one scenario (and one converged before its first
-    iteration) against pcg_fused_plain (_hold_fixed_and_converged)."""
+    """N = 1,280 at bs = 12 in f64, past 16 blocks' shared memory, takes
+    the global operator (a cluster of 16, its operator in the workspace,
+    its vectors in shared memory); one scenario (and one converged before
+    its first iteration) against pcg_fused_plain
+    (_hold_fixed_and_converged)."""
     lib, f64 = libs[order], torch.float64
     assert FP.variant(1280, 12, f64, lib.tmr_pcg_variant) == 2
     assert FP.cluster_size(1280, 12, f64, lib.tmr_pcg_cluster_size) == 0
+    assert lib.tmr_pcg_work_elems(1280, 12, 8) == 16 * (2 * 80 * 78
+                                                       + 81 * 144)
     ops = _problem(2, 1280, 12, seed=7, precond=precond, dtype=f64)
     _hold_fixed_and_converged(lib, ops, precond, f64)
 
 
 @pytest.mark.parametrize("order", ["pcg", "pcg_reversed"])
-@pytest.mark.parametrize("N,bs,variants", [(9, 5, (1, 2, 3)),
+@pytest.mark.parametrize("N,bs,C", [(1024, 12, 13), (200, 24, 10)])
+@pytest.mark.parametrize("precond", ["BJ", "SS"])
+def test_cluster_past_the_portable_size(precond, N, bs, C, order, libs):
+    """Clusters of 9-16 blocks (non-portable on the card): (1,024, 12) in
+    f64 takes 13 blocks of 79 knots, (200, 24) 10 of 20; against
+    pcg_fused_plain in thread-and-rank order and reversed
+    (_hold_fixed_and_converged)."""
+    lib, f64 = libs[order], torch.float64
+    assert FP.variant(N, bs, f64, lib.tmr_pcg_variant) == 3
+    assert FP.cluster_size(N, bs, f64, lib.tmr_pcg_cluster_size) == C
+    ops = _problem(2, N, bs, seed=N + bs, precond=precond, dtype=f64)
+    _hold_fixed_and_converged(lib, ops, precond, f64)
+
+
+@pytest.mark.parametrize("order", ["pcg", "pcg_reversed"])
+@pytest.mark.parametrize("precond", ["BJ", "SS"])
+def test_global_operator_vectors_in_the_workspace(precond, order, libs):
+    """N = 7,800 at bs = 12 in f64: the global operator's five vectors of
+    488 knots a rank (234,240 bytes) exceed one block's shared memory, so
+    they join the operator in the workspace and the halos read the
+    neighbours' rows there; against pcg_fused_plain
+    (_hold_fixed_and_converged)."""
+    lib, f64, N = libs[order], torch.float64, 7800
+    assert FP.variant(N, 12, f64, lib.tmr_pcg_variant) == 2
+    assert lib.tmr_pcg_smem_elems(N, 12, 8) == 128   # the slots alone
+    assert lib.tmr_pcg_work_elems(N, 12, 8) == 16 * (
+        2 * 488 * 78 + 489 * 144 + 5 * 488 * 12)
+    ops = _problem(2, N, 12, seed=11, precond=precond, dtype=f64)
+    _hold_fixed_and_converged(lib, ops, precond, f64)
+
+
+@pytest.mark.parametrize("N,bs,variant", [(200, 12, 3), (1024, 12, 3),
+                                          (1280, 12, 2), (7800, 12, 2)])
+def test_planted_halo_fault_fails_the_f64_check(N, bs, variant, libs):
+    """A build whose SS s0 phase ends on the block's barrier, not the
+    cluster's (HALO_FAULT), lets each rank read its neighbour's s0 before
+    the neighbour wrote it: after 3 fixed iterations in f64 it misses the
+    1e-9 bar that the true build holds (test_global_operator_*, above),
+    in clusters of 3 and 13 blocks and in the global operator with its
+    vectors in shared memory and in the workspace."""
+    lib, f64 = libs["pcg_halo_fault"], torch.float64
+    assert FP.variant(N, bs, f64, lib.tmr_pcg_variant) == variant
+    ops = _problem(2, N, bs, seed=N + bs, precond="SS", dtype=f64)
+    fixed = dict(precond="SS", tol=0.0, max_iter=3, relative=False)
+    dx, _ = _host(lib, ops, **fixed)
+    ref, _ = FP.pcg_fused_plain(*ops, **fixed)
+    assert max(_errors(dx, ref)) > 1e-6
+
+
+@pytest.mark.parametrize("order", ["pcg", "pcg_reversed"])
+@pytest.mark.parametrize("N,bs,variants", [(9, 5, (2, 3)),
                                            (24, 24, (2, 3)),
-                                           (30, 12, (0, 1, 2, 3))])
+                                           (30, 12, (0, 2, 3))])
 def test_each_variant_by_the_entry_that_names_it(N, bs, variants, order,
                                                  libs):
-    """tmr_pcg_f64_as runs the variant it is given: at (9, 5) the shared
-    operator, the global operator and a cluster of one block; at (24, 24)
-    the global operator and a cluster of two; at (30, 12) all four.  Each
-    against pcg_fused_plain, SS with bf16 inverses (the r'r exit) and BJ
-    (_hold_fixed_and_converged); a variant that cannot take the shape
-    makes the wrapper raise."""
+    """tmr_pcg_f64_as runs the variant it is given: at (9, 5) the global
+    operator (9 blocks of one knot) and a cluster of one block (the shared
+    operator's shape until the cluster took it); at (24, 24) the global
+    operator and a cluster of two; at (30, 12) all three.  Each against
+    pcg_fused_plain, SS with bf16 inverses (the r'r exit) and BJ
+    (_hold_fixed_and_converged); a variant that cannot take the shape, and
+    the retired 1, make the wrapper raise."""
     lib, f64 = libs[order], torch.float64
     for v in variants:
         for precond, narrow in (("SS", torch.bfloat16), ("BJ", None)):
@@ -208,14 +287,17 @@ def test_each_variant_by_the_entry_that_names_it(N, bs, variants, order,
                                      "f32"])
 def test_storage_codes_match_plain(storage, N, bs, libs):
     """Narrow storage of the inverses (bf16, f16; f32 under f64 operands;
-    and bf16 inverses with bf16 blocks) in the register (7, 12), shared
-    (9, 5) and cluster (24, 24) variants: the kernel reads the narrow
-    values itself, exits on r'r, and matches pcg_fused_plain on the same
-    stored operands in f64 with equal iteration counts."""
+    and bf16 inverses with bf16 blocks) in the register variant (7, 12)
+    and in clusters of one block (9, 5) and of two (24, 24): the kernel
+    reads the narrow values itself, exits on r'r, and matches
+    pcg_fused_plain on the same stored operands in f64 with equal
+    iteration counts."""
     lib = libs["pcg"]
     f64 = torch.float64
     assert FP.variant(N, bs, f64, lib.tmr_pcg_variant) == {
-        (7, 12): 0, (9, 5): 1, (24, 24): 3}[(N, bs)]
+        (7, 12): 0, (9, 5): 3, (24, 24): 3}[(N, bs)]
+    assert FP.cluster_size(N, bs, f64, lib.tmr_pcg_cluster_size) == {
+        (7, 12): 1, (9, 5): 1, (24, 24): 2}[(N, bs)]
     narrow = {"bf16": torch.bfloat16, "f16": torch.float16,
               "bf16 operator": torch.bfloat16, "f32": torch.float32}[storage]
     diag_p, upper, pdiag_p, r0 = _problem(3, N, bs, seed=bs, precond="SS",
@@ -261,47 +343,48 @@ def test_storage_decoders_every_bit_pattern(libs):
 
 def test_variant_at_each_boundary(libs):
     """tmr_pcg_variant: the register variant up to 1,024 rows at bs <= 8
-    and 768 from bs = 10, at its built block sizes only; the shared
-    operator while its system, four vectors and 64 reduction slots fit
-    232,448 bytes; past that the cluster, of the fewest blocks C <= 8 each
-    of whose runs of knots (its packed blocks, one upper block more, five
-    vectors and 96 reduction slots) fits; the global operator past 8
-    blocks; the shared memory and the workspace each variant asks for."""
+    and 768 from bs = 10, at its built block sizes only; past that the
+    cluster, of the fewest blocks C <= 16 each of whose runs of knots (its
+    packed blocks, one upper block more, five vectors and 128 reduction
+    slots: 64 of the block's, 4 x 16 of the cluster's; one block: four
+    vectors, s0 in s's place, and the block's 64 slots) fits 232,448
+    bytes; the global operator past 16 blocks (a cluster of 16, its
+    operator in the workspace, its vectors in shared memory while they
+    fit); the shared memory and the workspace each variant asks for."""
     lib = libs["pcg"]
     var, work = lib.tmr_pcg_variant, lib.tmr_pcg_work_elems
     csize, smem = lib.tmr_pcg_cluster_size, lib.tmr_pcg_smem_elems
     f32, f64 = torch.float32, torch.float64
+    slots, limit = 128, 232_448
 
-    def shared_fits(N, bs, item):
-        tri = bs * (bs + 1) // 2
-        return (2 * N * tri + N * bs * bs + 4 * N * bs + 64) * item <= 232_448
+    def operator_elems(N, bs, C):
+        nk, tri = -(-N // C), bs * (bs + 1) // 2
+        return 2 * nk * tri + (nk + 1) * bs * bs
 
     def rank_elems(N, bs, C):
-        nk, tri = -(-N // C), bs * (bs + 1) // 2
-        return 2 * nk * tri + (nk + 1) * bs * bs + 5 * nk * bs + 96
+        if C == 1:
+            return operator_elems(N, bs, 1) + 4 * N * bs + 64
+        return operator_elems(N, bs, C) + 5 * -(-N // C) * bs + slots
 
     def fewest(N, bs, item):
-        return next((C for C in range(1, 9)
-                     if rank_elems(N, bs, C) * item <= 232_448), 0)
+        return next((C for C in range(1, min(16, N) + 1)
+                     if rank_elems(N, bs, C) * item <= limit), 0)
 
     for bs, rows in ((2, 1024), (8, 1024), (10, 768), (12, 768), (14, 768)):
         last = rows // bs
         for dt in (f32, f64):
             assert FP.variant(last, bs, dt, var) == 0
-            assert FP.variant(last + 1, bs, dt, var) == (
-                1 if shared_fits(last + 1, bs, dt.itemsize) else 3)
+            assert FP.variant(last + 1, bs, dt, var) == 3
+            assert FP.cluster_size(last + 1, bs, dt, csize) == fewest(
+                last + 1, bs, dt.itemsize)
     for bs in (1, 3, 5, 12, 16, 24, 30):
         for dt in (f32, f64):
             item = dt.itemsize
-            n_max = 1
-            while shared_fits(n_max + 1, bs, item):
-                n_max += 1
-            assert FP.variant(n_max, bs, dt, var) == 1
-            assert work(n_max, bs, item) == 0
-            # the cluster from one block row more: C -> C + 1 where the
-            # fewest blocks that fit grow, the global operator past 8
-            N, C = n_max + 1, fewest(n_max + 1, bs, item)
-            assert C >= 2
+            # from the first shape past the register variant: C -> C + 1
+            # where the fewest blocks that fit grow, the global operator
+            # past 16
+            N = next(n for n in range(1, 2000) if FP.variant(n, bs, dt, var))
+            C = fewest(N, bs, item)
             seen = set()
             while C:
                 assert FP.variant(N, bs, dt, var) == 3, (bs, dt, N)
@@ -309,30 +392,49 @@ def test_variant_at_each_boundary(libs):
                 assert FP.smem_bytes(N, bs, dt, smem) == item * rank_elems(
                     N, bs, C) <= FP.SMEM_LIMIT
                 assert work(N, bs, item) == 0
+                seen.add(C)
                 nxt = fewest(N + 1, bs, item)
-                if nxt != C:   # a boundary: C -> C + 1 (or past 8 blocks)
+                if nxt != C:   # a boundary: C -> C + 1 (or past 16 blocks)
                     assert nxt in (C + 1, 0), (bs, dt, N, C, nxt)
-                    seen.add(C)
                 N, C = N + 1, nxt
             assert FP.variant(N, bs, dt, var) == 2
             assert FP.cluster_size(N, bs, dt, csize) == 0
-            assert work(N, bs, item) == 4 * N * bs
-            assert seen and max(seen) == 8, (bs, dt, seen)
-    for N, dt in ((166, f32), (83, f64)):
-        assert FP.variant(N, 12, dt, var) == 1
-        assert FP.variant(N + 1, 12, dt, var) == 3
+            vectors = 5 * -(-N // 16) * bs
+            assert (vectors + slots) * item <= limit
+            assert smem(N, bs, item) == vectors + slots
+            assert work(N, bs, item) == 16 * operator_elems(N, bs, 16)
+            assert max(seen) == 16, (bs, dt, seen)
+            if bs != 12:
+                assert seen == set(range(1, 17)), (bs, dt, seen)
+    # the shared operator's old range at bs = 12 (N = 65-166 in f32, 65-83
+    # in f64) and bs = 24 (up to 45 / 22): one block up to 166 / 82 and 45
+    # / 22, then two
+    for N, dt in ((166, f32), (82, f64)):
+        assert FP.variant(65, 12, dt, var) == 3
+        assert FP.cluster_size(65, 12, dt, csize) == 1
+        assert FP.cluster_size(N, 12, dt, csize) == 1
         assert FP.cluster_size(N + 1, 12, dt, csize) == 2
-    assert FP.variant(45, 24, f32, var) == 1 and FP.variant(46, 24, f32, var) == 3
-    assert FP.variant(22, 24, f64, var) == 1 and FP.variant(23, 24, f64, var) == 3
+    for N, dt in ((45, f32), (22, f64)):
+        assert FP.cluster_size(N, 24, dt, csize) == 1
+        assert FP.cluster_size(N + 1, 24, dt, csize) == 2
     for N, bs, dt, C in ((64, 24, f32, 2), (256, 12, f32, 2),
                          (1024, 12, f32, 7), (64, 24, f64, 4),
-                         (256, 12, f64, 4)):
+                         (256, 12, f64, 4), (2048, 12, f32, 13),
+                         (1024, 12, f64, 13), (128, 12, f32, 1)):
         assert FP.variant(N, bs, dt, var) == 3
         assert FP.cluster_size(N, bs, dt, csize) == C
         FP.check_fits(N, bs, dt, smem)
-    for N, dt in ((1280, f32), (640, f64)):   # the last cluster at bs = 12
-        assert FP.variant(N, 12, dt, var) == 3
+    for N, dt in ((2560, f32), (1264, f64)):   # the last cluster at bs = 12
+        assert FP.cluster_size(N, 12, dt, csize) == 16
         assert FP.variant(N + 1, 12, dt, var) == 2
-    for N, dt in ((2048, f32), (1280, f64)):
+    for N, dt in ((4096, f32), (1280, f64)):
         assert FP.variant(N, 12, dt, var) == 2
         FP.check_fits(N, 12, dt, smem)
+    # past the vectors' room: the vectors in the workspace, the slots alone
+    # in shared memory
+    for N, dt in ((15456, f32), (7712, f64)):
+        item = dt.itemsize
+        assert smem(N, 12, item) == 5 * -(-N // 16) * 12 + slots
+        assert smem(N + 16, 12, item) == slots
+        assert work(N + 16, 12, item) == 16 * (
+            operator_elems(N + 16, 12, 16) + 5 * -(-(N + 16) // 16) * 12)

@@ -22,8 +22,14 @@ bs = 12, 40 fixed iterations: the PCG-SS flagship's shape; another count
 with ``--pcg-iters``), each build held against ``pcg_fused_plain``
 (max|d|/max|ref|, equal iteration counts); its baseline must have
 pcg.cu's entry with storage codes and a workspace (the layout since the
-global-operator variant).  One JSON line per (dtype, L
-or B), with the device-time ratio
+global-operator variant).  ``--pcg-shapes f32:128:12:512 ...`` (dtype, N,
+bs, B) runs K4 at those shapes instead, each build taking the variant
+its own ``variant()`` picks, and adds to each line both builds' variant,
+the current build's cluster size and clusters resident at once
+(cudaOccupancyMaxActiveClusters), chip_smoke.py's bound for the run's
+iterations and, where the B operators exceed the H100's 50 MB L2, the
+re-read floor (operator bytes x iterations / 3.35 TB/s).  One JSON line
+per (dtype, L or B), with the device-time ratio
 current / baseline (the means of each side's two turns), one line per
 build with its ``ptxas -v`` summary, and one line with the time of an
 empty launch (one block, built beside the baseline) by the same timers:
@@ -56,20 +62,35 @@ from trajoptmpcreference_tpu_torch.ops.kinematics import (  # noqa: E402
     LaneKinematics,
     task_vec_kernel,
 )
-from chip_smoke import ptxas_summary, random_systems  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    L2_BYTES,
+    PEAK_BYTES,
+    pcg_bound,
+    ptxas_summary,
+    random_systems,
+)
 
 LANE_COUNTS = {"fd": (512, 1000, 32_256, 96_768, 290_304),
                "fd_grad": (1000, 32_256),
                "task_vec": (512, 1536, 4608, 32_256, 96_768, 290_304)}
 PCG_BATCHES, PCG_N, PCG_BS = (1, 512, 1000), 64, 12
 # the entry functions whose ptxas lines are printed: n = 6, or bs = 12 (K4's
-# first design had one kernel per type; the register, shared and cluster
-# variants)
+# first design had one kernel per type; then the register, shared, global
+# and cluster variants; now the register variant and the cluster template
+# (GOP, MULTI): a cluster (Lb0ELb1E), one block (Lb0ELb0E), the global
+# operator (Lb1ELb1E))
 PTXAS_KEYS = {"fd": ("IfLi6E", "IdLi6E"), "fd_grad": ("IfLi6E", "IdLi6E"),
               "task_vec": ("IfLi6E", "IdLi6E"),
               "pcg": ("pcg_kernelIfE", "pcg_kernelIdE", "pcg_regsIfLi12E",
                       "pcg_regsIdLi12E", "pcg_sharedIfE", "pcg_sharedIdE",
-                      "pcg_clusterIfLi12EE", "pcg_clusterIdLi12EE")}
+                      "pcg_globalIfE", "pcg_globalIdE",
+                      "pcg_clusterIfLi12EE", "pcg_clusterIdLi12EE",
+                      "pcg_clusterIfLi12ELb0ELb1E",
+                      "pcg_clusterIdLi12ELb0ELb1E",
+                      "pcg_clusterIfLi12ELb0ELb0E",
+                      "pcg_clusterIdLi12ELb0ELb0E",
+                      "pcg_clusterIfLi12ELb1ELb1E",
+                      "pcg_clusterIdLi12ELb1ELb1E")}
 PLAIN = {"fd": lanes.fd_lanes, "fd_grad": lanes.fd_grad_lanes,
          "task_vec": lambda robot, q, qd, u:
              LaneKinematics(robot).task_vec_L(q, qd)}
@@ -139,12 +160,22 @@ def _turns(line, baseline, current):
     print(json.dumps(line), flush=True)
 
 
-def bench_pcg(base, iters: int) -> None:
-    """K4: the baseline build against the current one, f32 and f64, with
-    ``iters`` fixed iterations."""
+def bench_pcg(base, iters: int, shapes=None) -> None:
+    """K4: the baseline build against the current one with ``iters`` fixed
+    SS iterations, f32 and f64 at B = PCG_BATCHES, N = 64, bs = 12, or at
+    ``shapes`` ((dtype, N, bs, B), each build's own variant) with their
+    bounds."""
+    from trajoptmpcreference_tpu_torch.kernels import opcount
     dev = torch.device("cuda", 0)
     kw = dict(precond="SS", tol=0.0, max_iter=iters, relative=False)
-    for dt in (torch.float32, torch.float64):
+    if shapes is None:
+        shapes = [(dt, PCG_N, PCG_BS, B) for dt in (torch.float32,
+                                                   torch.float64)
+                  for B in PCG_BATCHES]
+    else:
+        opcount.build_all()
+    lib = _build.library("pcg")
+    for dt, N, bs, B in shapes:
         sfx = "f32" if dt == torch.float32 else "f64"
         fn_base = getattr(base, f"tmr_pcg_{sfx}")
 
@@ -156,18 +187,43 @@ def bench_pcg(base, iters: int) -> None:
         def current(*ops):
             return FP.pcg_fused_kernel(*ops, **kw)
 
-        for B in PCG_BATCHES:
-            S, b = random_systems(torch, BT, B, PCG_N, PCG_BS, 91, 1.0, dt, dev)
-            ops = FP.pack_operands(S, b, "SS")
-            ref, it_ref = FP.pcg_fused_plain(*ops, **kw)
-            line = {"kernel": "pcg", "dtype": sfx, "B": B, "N": PCG_N,
-                    "bs": PCG_BS, "iters": iters}
-            for name, fn in (("baseline", baseline), ("current", current)):
-                out, it = fn(*ops)
-                line[f"{name}_rel"] = float((out - ref).abs().max()
-                                            / ref.abs().max())
-                line[f"{name}_iters_equal"] = bool(torch.equal(it, it_ref))
-            _turns(line, lambda: baseline(*ops), lambda: current(*ops))
+        S, b = random_systems(torch, BT, B, N, bs, 91, 1.0, dt, dev)
+        ops = FP.pack_operands(S, b, "SS")
+        del S, b
+        ref, it_ref = FP.pcg_fused_plain(*ops, **kw)
+        line = {"kernel": "pcg", "dtype": sfx, "B": B, "N": N, "bs": bs,
+                "iters": iters}
+        if (N, bs) != (PCG_N, PCG_BS):
+            item = dt.itemsize
+            line["baseline_variant"] = int(base.tmr_pcg_variant(N, bs, item))
+            line["current_variant"] = FP.VARIANTS[FP.variant(N, bs, dt)]
+            line["current_cluster"] = (FP.cluster_size(N, bs, dt)
+                                       or min(N, 16))
+            line["current_max_clusters"] = int(
+                lib.tmr_pcg_max_clusters(N, bs, item))
+            bnd, by, need, _, hist = pcg_bound(torch, opcount, FP, ops, kw)
+            line.update(bound_ms=bnd, bound_by=by, needed_ops=need,
+                        iterations=hist)
+            op_bytes = B * N * (bs * (bs + 1) + bs * bs) * item
+            if op_bytes > L2_BYTES:
+                line["reread_floor_ms"] = (1e3 * op_bytes * iters
+                                           / PEAK_BYTES)
+        for name, fn in (("baseline", baseline), ("current", current)):
+            out, it = fn(*ops)
+            line[f"{name}_rel"] = float((out - ref).abs().max()
+                                        / ref.abs().max())
+            line[f"{name}_iters_equal"] = bool(torch.equal(it, it_ref))
+        del ref
+        _turns(line, lambda: baseline(*ops), lambda: current(*ops))
+        if "bound_ms" in line:
+            print(json.dumps({
+                "kernel": "pcg", "dtype": sfx, "B": B, "N": N, "bs": bs,
+                "share_of_bound": {
+                    side: line["bound_ms"] / min(
+                        line[f"{side}_device_ms_{t}"] for t in turns)
+                    for side, turns in (("baseline", (0, 3)),
+                                        ("current", (1, 2)))}}),
+                flush=True)
 
 
 def main(argv=None) -> int:
@@ -178,6 +234,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pcg-iters", type=int, default=40,
                     help="K4's fixed iterations (0: load, one "
                     "preconditioner application and store)")
+    ap.add_argument("--pcg-shapes", nargs="*", default=None,
+                    help="K4 at these shapes, dtype:N:bs:B (f32 or f64)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_fd: no CUDA device")
@@ -194,7 +252,12 @@ def main(argv=None) -> int:
             flush=True)
     _empty_launch()
     if kernel == "pcg":
-        bench_pcg(base, args.pcg_iters)
+        shapes = None
+        if args.pcg_shapes:
+            dts = {"f32": torch.float32, "f64": torch.float64}
+            shapes = [(dts[d], int(n), int(bs), int(b)) for d, n, bs, b in
+                      (x.split(":") for x in args.pcg_shapes)]
+        bench_pcg(base, args.pcg_iters, shapes)
         return 0
     robot = serial_arm(6)
     dev = torch.device("cuda", 0)

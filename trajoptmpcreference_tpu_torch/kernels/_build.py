@@ -117,13 +117,14 @@ def ptxas_report(name: str) -> str:
 def bind_pcg_shapes(lib: ctypes.CDLL) -> None:
     """Bind K4's per-shape entries, each of (N, bs, bytes per value): the
     variant, the cluster variant's blocks per scenario, the shared memory
-    per block and the workspace per scenario (in values), and the cluster
-    variant's clusters resident at once on the card; the workspace of a
-    given variant (N, bs, variant); the entries that run a given variant
+    per block and the workspace per scenario (in values), and the
+    clusters resident at once on the card; the workspace of a given
+    variant (N, bs, bytes, variant); the entries that run a given variant
     (``tmr_pcg_<f32|f64>_as``); and the storage decoder (pointer, index,
     code -> f64).  A build of an older pcg.cu (a baseline in
-    tools/bench_fd.py) lacks the cluster variant's entries: those it has
-    are bound."""
+    tools/bench_fd.py) may lack some of these entries, or take the
+    variant's workspace without the value size: those it has are bound,
+    and the solve entries and ``tmr_pcg_work_elems`` are the same."""
     for name, res in (("variant", ctypes.c_int),
                       ("cluster_size", ctypes.c_int),
                       ("smem_elems", ctypes.c_longlong),
@@ -132,7 +133,8 @@ def bind_pcg_shapes(lib: ctypes.CDLL) -> None:
                       ("max_clusters", ctypes.c_int)):
         fn = getattr(lib, f"tmr_pcg_{name}", None)
         if fn is not None:
-            fn.argtypes, fn.restype = [_I, _I, _I], res
+            fn.argtypes = [_I] * (4 if name == "variant_work_elems" else 3)
+            fn.restype = res
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"tmr_pcg_{suffix}_as", None)
         if fn is not None:

@@ -28,8 +28,8 @@
 // chain of shuffles and a barrier, so the solve is bound by the latency
 // of the block's barriers and sums and by the instructions each
 // multiply-add costs (PERF.md, "Inside K4": the sums' shuffle trees and
-// the other barriers take about a fifth of the time each).  Four
-// variants, chosen per (N, bs, type) by `variant`:
+// the other barriers take about a fifth of the time each).  Three
+// variants, chosen per (N, bs, type) by `variant` (1 is retired):
 //
 // * 0, registers (RegRow: the block sizes the plants give, bs = 2, 4,
 //   ..., 14, and up to 1,024 rows of S, 768 from bs = 10): each thread
@@ -43,44 +43,51 @@
 //   temporary t) and two reduction slots per warp: 9,664 bytes at N = 64,
 //   bs = 12 in f32.  A block of 384 threads (bs >= 10; 512 below) holds
 //   one SM's registers, so one block runs per SM.
-// * 1, shared operator (ShRows<T, false>: any other shape whose system
-//   and vectors fit one block's shared memory, bs read at run time): the
-//   packed blocks are copied into shared memory at load, converted there
-//   once to the operands' type (so the shared memory a shape needs, and
-//   the variant it takes, do not depend on the storage); each thread
-//   walks rows tid, tid + nt, ...; x lives in dx.
-// * 3, cluster (ClRows: a shape whose system fits the shared memory of C
-//   <= 8 blocks, the portable cluster size, but not of one): one
-//   thread-block cluster per scenario, of the smallest C that fits,
-//   launched with a run-time cluster dimension.  Rank c owns a contiguous
-//   run of about N / C knots and holds, in its own shared memory, their
-//   packed D and P blocks, U_{k0-1} .. U_{k1-1} (the first for the
-//   transposed term of its first knot), its rows of v, p, s, s0 and w and
-//   the reduction slots, all knot-fastest so that a warp's loads at each
-//   step of its rows' dot products hit consecutive words (ClRows).  The
-//   operator is converted once at load, as in variant 1, and never read
-//   from device memory again; bs = 12 and 24 are built in.  Only two phases
-//   read another rank's rows: the matvec (p at k +- 1) and SS's t (s0 at
-//   k +- 1), each the neighbour's boundary block of bs values, read in
-//   place through distributed shared memory after the cluster barrier
-//   that ends the phase which wrote it; the other phases read their own
-//   rows and end on __syncthreads().  A sum is the block's sum, written by
-//   thread 0 into slot c of every rank, a cluster barrier, and slots 0 ..
-//   C-1 added in that order on every thread, so every thread of the
-//   cluster holds the same bits and takes the same exit.  p'Ap and r's
-//   use two sets of slots, so no rank writes a slot that another has yet
-//   to read; SS keeps s0 apart from s, so s = s0 - P t does not overwrite
-//   what a neighbour still reads.  The load and the store end on a cluster
-//   barrier: no rank writes into a rank that has not started, or exits
-//   while another may still read its shared memory.
-// * 2, global operator (ShRows<T, true>: the shapes past 8 blocks' shared
-//   memory): the same rows and phases as variant 1, with the packed blocks
-//   left in device memory, read through the read-only path and converted
-//   at each use, and the vectors v, p, s, w in a workspace the wrapper
-//   allocates (4 N bs values a scenario); only the reduction slots are in
-//   shared memory.  __syncthreads() orders the block's device-memory
-//   writes as it orders its shared ones.  Each iteration reads the
-//   operator from L2 or device memory again.
+// * 3, cluster (ClRows<T, BS, false>: every other shape whose system fits
+//   the shared memory of C <= 16 blocks): one thread-block cluster per
+//   scenario, of the smallest C that fits (C = 1 included: one block),
+//   launched with a run-time cluster dimension (past 8 blocks, the
+//   portable limit, as a non-portable size; the H100 schedules 16).  Rank
+//   c owns a contiguous run of about N / C knots and holds, in its own
+//   shared memory, their packed D and P blocks, U_{k0-1} .. U_{k1-1} (the
+//   first for the transposed term of its first knot), its rows of v, p,
+//   s, s0 and w and the reduction slots, all knot-fastest so that a
+//   warp's loads at each step of its rows' dot products hit consecutive
+//   words (ClRows).  The operator is converted to the operands' type once
+//   at load (so the shared memory a shape needs, and the variant it
+//   takes, do not depend on the storage) and never read from device
+//   memory again; bs = 12 and 24 are built in, other block sizes read at
+//   run time.  Only two phases read another rank's rows: the matvec (p at
+//   k +- 1) and SS's t (s0 at k +- 1), each the neighbour's boundary block
+//   of bs values, read in place through distributed shared memory after
+//   the cluster barrier that ends the phase which wrote it; the other
+//   phases read their own rows and end on __syncthreads().  A sum is the
+//   block's sum, written by thread r into slot c of rank r (one thread a
+//   rank), a cluster barrier, and slots 0 .. C-1 added in that order on
+//   every thread, so every thread of the cluster holds the same bits and
+//   takes the same exit.  p'Ap and r's use two sets of slots, so no rank
+//   writes a slot that another has yet to read; SS keeps s0 apart from s,
+//   so s = s0 - P t does not overwrite what a neighbour still reads.  The
+//   load and the store end on a cluster barrier: no rank writes into a
+//   rank that has not started, or exits while another may still read its
+//   shared memory.  A one-block cluster (C = 1, known at launch) is the
+//   same kernel template instantiated with MULTI = false and launched as
+//   plain blocks: every cluster barrier is the block's, no slot is
+//   written (the same sums; cluster barriers there cost 27% more time,
+//   PERF.md) and s0 shares s's array, so one block holds N = 166 at bs =
+//   12 in f32 (82 in f64).
+// * 2, global operator (ClRows<T, BS, true>: the shapes past 16 blocks'
+//   shared memory): the same ranks, rows, phases, sums and halos as the
+//   cluster, over C = min(16, N) blocks, with the packed D, P and U blocks
+//   written once, in the load phase, into the workspace the wrapper
+//   allocates, converted there to the operands' type, in the cluster's
+//   knot-fastest layout; each rank then streams its own run of knots from
+//   there (L2 or device memory) at every use, a warp's loads coalesced,
+//   converting nothing.  The vectors and slots stay in shared memory
+//   while they fit (N up to ~15,000 at bs = 12 in f32); past that the
+//   vectors join the operator in the workspace, and the halos read the
+//   neighbour's rows there (the cluster barrier orders device memory
+//   across the cluster as it orders shared memory).
 //
 // All run one phase sequence (pcg_block) with a barrier after each phase
 // and a block sum as one shuffle tree per warp, one barrier, and a second
@@ -89,14 +96,14 @@
 // iteration: p (1), S p and p'Ap (1), x and r (1), then the
 // preconditioner: s = P r and r's (1) for J / BJ; for SS s0 = P r (1),
 // t = U s0_{k+1} + U^T s0_{k-1} (1), s = s0 - P t and r's (1).  4 barriers
-// with J / BJ, 6 with SS, with either exit; in the cluster variant the
-// barriers after p and after s0, and the two sums, are cluster barriers
-// (2 with J / BJ, 4 with SS).  The phase order alone keeps a reduction
+// with J / BJ, 6 with SS, with either exit; in a cluster of C > 1 blocks
+// the barriers after p and after s0, and the two sums, are cluster
+// barriers (2 with J / BJ, 4 with SS).  The phase order alone keeps a reduction
 // slot from being overwritten before every warp has read it, so the slots
 // need no barrier of their own.
 //
 // The same source compiles as plain C++ (no __CUDACC__): each phase runs
-// for every thread of the block in turn, and in the cluster variant for
+// for every thread of the block in turn, and in the cluster variants for
 // every rank of the cluster in turn, each rank's shared memory one piece
 // of a host buffer (TMR_GROUP_REVERSE_TIDS: ranks and threads in reverse,
 // to catch a phase in which one thread reads what another writes), the
@@ -110,7 +117,6 @@
 #include <string.h>
 
 #include <functional>
-#include <type_traits>
 #include <vector>
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
@@ -124,8 +130,7 @@
 namespace tmr_pcg {
 
 constexpr int WARPS = 32;       // reduction slots: two per warp of a block
-constexpr int MAX_THREADS = 1024;
-constexpr int CLUSTER_MAX = 8;  // the portable cluster size
+constexpr int CLUSTER_MAX = 16;   // the H100's largest (non-portable) cluster
 constexpr size_t SMEM_LIMIT = 232448;   // one block's shared memory, bytes
 constexpr long long INDEX_LIMIT = 2147483647;   // the int row / block index
 
@@ -229,26 +234,34 @@ TMR_HD bool use_regs(int N, int bs) {
   return compiled_bs(bs) && (long long)N * bs <= reg_rows(bs);
 }
 
-// shared memory of the shared-operator variant, in values
-TMR_HD size_t shared_operator_elems(int N, int bs) {
-  const size_t n = (size_t)N * bs, tri = (size_t)bs * (bs + 1) / 2;
-  return 2 * N * tri + (size_t)N * bs * bs + 4 * n + 2 * WARPS;
-}
-
-// the cluster variant: rank c of `ranks` holds knots first_knot(c) ..
+// the cluster variants: rank c of `ranks` holds knots first_knot(c) ..
 // first_knot(c + 1) - 1, at most knots_max of them
 TMR_HD int first_knot(int N, int ranks, int c) {
   return (int)((long long)c * N / ranks);
 }
 TMR_HD int knots_max(int N, int ranks) { return (N + ranks - 1) / ranks; }
 
-// shared memory of one rank of the cluster variant, in values: its packed
-// D and P blocks, nk + 1 upper blocks, five vectors, the block's reduction
-// slots and two sets of the ranks' partial sums (two values each)
-TMR_HD size_t cluster_elems(int N, int bs, int ranks) {
+// one rank's operator, in values: the packed D and P blocks of its knots
+// and nk + 1 upper blocks
+TMR_HD size_t operator_elems(int N, int bs, int ranks) {
   const size_t nk = knots_max(N, ranks), tri = (size_t)bs * (bs + 1) / 2;
-  return 2 * nk * tri + (nk + 1) * bs * bs + 5 * nk * bs + 2 * WARPS
-         + 4 * CLUSTER_MAX;
+  return 2 * nk * tri + (nk + 1) * bs * bs;
+}
+// one rank's vectors, in values: v, p, s, w and, in a cluster of more
+// than one block (multi), SS's s0 apart from s
+TMR_HD size_t vector_elems(int N, int bs, int ranks, bool multi = true) {
+  return (multi ? 5 : 4) * (size_t)knots_max(N, ranks) * bs;
+}
+// the block's reduction slots and, in a cluster of more than one block,
+// two sets of the ranks' partial sums (two values each)
+TMR_HD constexpr size_t slot_elems(bool multi = true) {
+  return 2 * WARPS + (multi ? 4 * CLUSTER_MAX : 0);
+}
+
+// shared memory of one rank of the cluster variant, in values
+TMR_HD size_t cluster_elems(int N, int bs, int ranks) {
+  return operator_elems(N, bs, ranks) + vector_elems(N, bs, ranks, ranks > 1)
+         + slot_elems(ranks > 1);
 }
 
 // the smallest cluster whose ranks each fit one block's shared memory for
@@ -259,11 +272,17 @@ TMR_HD int cluster_size(int N, int bs, int item) {
   return 0;
 }
 
-// 0 registers, 1 shared operator, 2 global operator, 3 cluster, for
-// values of `item` bytes
+// the global operator's cluster, and whether its vectors (with the slots)
+// fit each block's shared memory
+TMR_HD int global_ranks(int N) { return N < CLUSTER_MAX ? N : CLUSTER_MAX; }
+TMR_HD bool global_vectors_shared(int N, int bs, int item) {
+  return (vector_elems(N, bs, global_ranks(N)) + slot_elems()) * item
+         <= SMEM_LIMIT;
+}
+
+// 0 registers, 3 cluster, 2 global operator, for values of `item` bytes
 TMR_HD int variant(int N, int bs, int item) {
   if (use_regs(N, bs)) return 0;
-  if (shared_operator_elems(N, bs) * item <= SMEM_LIMIT) return 1;
   return cluster_size(N, bs, item) > 0 ? 3 : 2;
 }
 
@@ -271,38 +290,46 @@ TMR_HD int variant(int N, int bs, int item) {
 TMR_HD bool takes(int v, int N, int bs, int item) {
   switch (v) {
     case 0: return use_regs(N, bs);
-    case 1: return shared_operator_elems(N, bs) * item <= SMEM_LIMIT;
-    case 2: return true;
+    case 2: return N > 0;
     case 3: return cluster_size(N, bs, item) > 0;
     default: return false;
   }
 }
 
-// shared memory of one block of variant v (a cluster of `ranks` blocks
-// for v = 3), in values
-TMR_HD size_t variant_smem_elems(int v, int N, int bs, int ranks) {
+// the blocks of one scenario in variant v
+TMR_HD int variant_ranks(int v, int N, int bs, int item) {
+  return v == 3 ? cluster_size(N, bs, item) : v == 2 ? global_ranks(N) : 1;
+}
+
+// shared memory of one block of variant v, in values
+TMR_HD size_t variant_smem_elems(int v, int N, int bs, int item) {
   switch (v) {
     case 0: return 3 * (size_t)N * bs + 4 * bs + 2 * WARPS;
-    case 1: return shared_operator_elems(N, bs);
-    case 3: return cluster_elems(N, bs, ranks);
-    default: return 2 * WARPS;
+    case 3: return cluster_elems(N, bs, cluster_size(N, bs, item));
+    default:
+      return slot_elems() + (global_vectors_shared(N, bs, item)
+                                 ? vector_elems(N, bs, global_ranks(N)) : 0);
   }
 }
 
 // shared memory of one block, in values, for the variant that takes
 // (N, bs) in values of `item` bytes
 TMR_HD size_t smem_elems(int N, int bs, int item) {
-  return variant_smem_elems(variant(N, bs, item), N, bs,
-                            cluster_size(N, bs, item));
+  return variant_smem_elems(variant(N, bs, item), N, bs, item);
 }
 
-// the workspace per scenario of variant v, in values (the global
-// operator's v, p, s, w)
-TMR_HD size_t variant_work_elems(int v, int N, int bs) {
-  return v == 2 ? 4 * (size_t)N * bs : 0;
+// the workspace per scenario of variant v, in values: the global
+// operator's converted operator (and its vectors, past shared memory),
+// rank by rank
+TMR_HD size_t variant_work_elems(int v, int N, int bs, int item) {
+  if (v != 2) return 0;
+  const int c = global_ranks(N);
+  return c * (operator_elems(N, bs, c)
+              + (global_vectors_shared(N, bs, item) ? 0
+                                                    : vector_elems(N, bs, c)));
 }
 TMR_HD size_t work_elems(int N, int bs, int item) {
-  return variant_work_elems(variant(N, bs, item), N, bs);
+  return variant_work_elems(variant(N, bs, item), N, bs, item);
 }
 
 // the launch's operands, whole batch
@@ -314,7 +341,9 @@ struct Args {
   int* iters;
   int B, N, bs, dcode, pcode, ss, relative, max_iter;
   T tol;
-  int ranks;   // blocks per scenario: C for the cluster variant, else 1
+  int ranks;     // blocks per scenario: C for a cluster, else 1
+  int vshared;   // the global operator: its vectors in shared memory
+  size_t smem, wper;   // values: shared memory a block, workspace a scenario
 };
 
 // one scenario's slice of the operands
@@ -330,14 +359,14 @@ TMR_HD Src<T> scenario(const Args<T>& a, size_t b) {
   const size_t n = (size_t)a.N * a.bs, nD = (size_t)a.N * (a.bs * (a.bs + 1) / 2);
   return Src<T>{Stored<T>{a.D, b * nD, a.dcode}, Stored<T>{a.P, b * nD, a.pcode},
                 a.U + b * n * a.bs, a.r0 + b * n, a.dx + b * n,
-                a.work ? a.work + b * 4 * n : nullptr};
+                a.work ? a.work + b * a.wper : nullptr};
 }
 
 // the block's shared state (the same for every thread)
 template <typename T>
 struct Team {
-  T *p, *s, *v, *w, *red;  // p, s; v: r (then t); w: Ap (then t), ShRows
-  T *D, *P, *U;            // the operator, shared-operator and cluster
+  T *p, *s, *v, *w, *red;  // p, s; v: r (then t); w: Ap (then t), cluster
+  T *D, *P, *U;            // cluster: the rank's operator
   T *s0, *cl;              // cluster: SS's s0; the ranks' partial sums
   // cluster: the neighbours' boundary blocks of p and s0 (null at the ends)
   const T *pprev, *pnext, *sprev, *snext;
@@ -345,6 +374,8 @@ struct Team {
   int rank, ranks, k0, nk; // cluster: this rank, C, its knots k0 .. k0+nk-1
   int ld;                  // cluster: the knot stride of its arrays
   ptrdiff_t stride;        // host build: values between two ranks' memories
+  ptrdiff_t wrank;         // vectors in the workspace: values between two
+                           // ranks' (0: in shared memory)
 };
 
 // ---- dot products over one block row ------------------------------------
@@ -374,8 +405,9 @@ struct RegRow {
   static TMR_HD int threads(int N, int, int) {
     return round_warp((N * BS + R - 1) / R);
   }
-  static TMR_HD Team<T> carve(T* m, const Src<T>&, int N, int, int nt, int,
-                              int, ptrdiff_t) {
+  static TMR_HD Team<T> carve(T* m, const Src<T>&, const Args<T>& a,
+                              int nt, int, ptrdiff_t) {
+    const int N = a.N;
     Team<T> t{};
     t.N = N;
     t.bs = BS;
@@ -486,190 +518,12 @@ struct RegRow {
   }
 };
 
-// ---- the shared- and global-operator variants: rows tid, tid + nt, ... ----
-// (D v)_i for one packed symmetric block D (a pointer into shared memory,
-// or a Stored operand in device memory), from the first term
-template <typename T, typename A>
-TMR_HD T sym_row(const A& D, const T* v, int i, int bs) {
-  const int base = i * (i + 1) / 2;
-  T acc = D[base] * v[0];
-  for (int j = 1; j <= i; ++j) acc += D[base + j] * v[j];
-  for (int j = i + 1; j < bs; ++j) acc += D[j * (j + 1) / 2 + i] * v[j];
-  return acc;
-}
-
-// (U v)_i and (U^T v)_i for one row-major bs x bs block U
-template <typename T, typename A>
-TMR_HD T up_row(const A& U, const T* v, int i, int bs) {
-  T acc = U[i * bs] * v[0];
-  for (int j = 1; j < bs; ++j) acc += U[i * bs + j] * v[j];
-  return acc;
-}
-
-template <typename T, typename A>
-TMR_HD T upT_row(const A& U, const T* v, int i, int bs) {
-  T acc = U[i] * v[0];
-  for (int j = 1; j < bs; ++j) acc += U[j * bs + i] * v[j];
-  return acc;
-}
-
-// device memory in the operands' type, through the read-only path
-template <typename T>
-struct ReadOnly {
-  const T* p;
-  TMR_HD T operator[](size_t i) const { return ldro(p + i); }
-  TMR_HD ReadOnly operator+(size_t k) const { return ReadOnly{p + k}; }
-};
-
-// how the variant reads its operator: plain pointers into shared memory,
-// or device memory (the packed blocks in their storage)
-template <typename T, bool GLOBAL>
-struct OperatorOf {
-  typedef const T* Packed;
-  typedef const T* Upper;
-};
-template <typename T>
-struct OperatorOf<T, true> {
-  typedef Stored<T> Packed;
-  typedef ReadOnly<T> Upper;
-};
-
-template <typename T, bool GLOBAL>
-struct ShRows {
-  int tid;
-  T part, part2;
-  T* x;  // the scenario's dx: only the thread of row g reads or writes x_g
-  typename OperatorOf<T, GLOBAL>::Packed D, P;
-  typename OperatorOf<T, GLOBAL>::Upper U;
-  static constexpr bool CLUSTER = false;
-
-  static TMR_HD int threads(int N, int bs, int) {
-    const int n = round_warp(N * bs);
-    return n < MAX_THREADS ? n : MAX_THREADS;
-  }
-  static TMR_HD Team<T> carve(T* m, const Src<T>& src, int N, int bs,
-                              int nt, int, int, ptrdiff_t) {
-    Team<T> t{};
-    t.N = N;
-    t.bs = bs;
-    t.n = N * bs;
-    t.nt = nt;
-    T* vec = src.work;
-    if (!GLOBAL) {
-      const size_t tri = (size_t)bs * (bs + 1) / 2;
-      t.D = m;
-      t.P = t.D + N * tri;
-      t.U = t.P + N * tri;
-      vec = t.U + (size_t)N * bs * bs;
-      m = vec + 4 * t.n;
-    }
-    t.v = vec;
-    t.p = t.v + t.n;
-    t.s = t.p + t.n;
-    t.w = t.s + t.n;
-    t.red = m;
-    return t;
-  }
-
-  // row (k, i) of U_k v_{k+1} + U_{k-1}^T v_{k-1}
-  TMR_HD T off(const Team<T>& tm, const T* v, int k, int i) const {
-    const int bs = tm.bs, bb = bs * bs;
-    T acc = T(0);
-    if (k + 1 < tm.N) acc = up_row(U + (size_t)k * bb, v + (k + 1) * bs, i, bs);
-    if (k > 0) acc += upT_row(U + (size_t)(k - 1) * bb, v + (k - 1) * bs, i, bs);
-    return acc;
-  }
-  TMR_HD T prow(const Team<T>& tm, const T* v, int g) const {
-    const int k = g / tm.bs;
-    return sym_row(P + (size_t)k * (tm.bs * (tm.bs + 1) / 2), v + k * tm.bs,
-                   g - k * tm.bs, tm.bs);
-  }
-
-  // the operator where the variant reads it: in device memory as it is,
-  // or copied into shared memory, converted once
-  template <bool G = GLOBAL>
-  TMR_HD typename std::enable_if<G>::type place_operator(const Team<T>&,
-                                                         const Src<T>& src) {
-    D = src.D;
-    P = src.P;
-    U = ReadOnly<T>{src.U};
-  }
-  template <bool G = GLOBAL>
-  TMR_HD typename std::enable_if<!G>::type place_operator(const Team<T>& tm,
-                                                          const Src<T>& src) {
-    const int nD = tm.N * (tm.bs * (tm.bs + 1) / 2), nU = tm.N * tm.bs * tm.bs;
-    for (int e = tid; e < nD; e += tm.nt) {
-      tm.D[e] = src.D[e];
-      tm.P[e] = src.P[e];
-    }
-    for (int e = tid; e < nU; e += tm.nt) tm.U[e] = src.U[e];
-    D = tm.D;
-    P = tm.P;
-    U = tm.U;
-  }
-
-  TMR_HD void load(const Team<T>& tm, const Src<T>& src, int t) {
-    tid = t;
-    part = part2 = T(0);
-    x = src.dx;
-    place_operator(tm, src);
-    for (int g = tid; g < tm.n; g += tm.nt) {
-      tm.v[g] = src.r0[g];
-      tm.p[g] = T(0);
-      src.dx[g] = T(0);
-    }
-  }
-  TMR_HD void pstep(const Team<T>& tm, T beta) {
-    for (int g = tid; g < tm.n; g += tm.nt) tm.p[g] = tm.s[g] + beta * tm.p[g];
-  }
-  TMR_HD void matvec(const Team<T>& tm) {
-    part = T(0);
-    for (int g = tid; g < tm.n; g += tm.nt) {
-      const int k = g / tm.bs, i = g - k * tm.bs;
-      const T a = sym_row(D + (size_t)k * (tm.bs * (tm.bs + 1) / 2),
-                          tm.p + k * tm.bs, i, tm.bs);
-      tm.w[g] = a + off(tm, tm.p, k, i);
-      part += tm.p[g] * tm.w[g];
-    }
-  }
-  TMR_HD void update(const Team<T>& tm, T alpha) {
-    for (int g = tid; g < tm.n; g += tm.nt) {
-      x[g] += alpha * tm.p[g];
-      tm.v[g] -= alpha * tm.w[g];
-    }
-  }
-  TMR_HD void pre_bj(const Team<T>& tm) {
-    part = part2 = T(0);
-    for (int g = tid; g < tm.n; g += tm.nt) {
-      tm.s[g] = prow(tm, tm.v, g);
-      part += tm.v[g] * tm.s[g];
-      part2 += tm.v[g] * tm.v[g];
-    }
-  }
-  TMR_HD void pre_s0(const Team<T>& tm) {
-    for (int g = tid; g < tm.n; g += tm.nt) tm.s[g] = prow(tm, tm.v, g);
-  }
-  TMR_HD void pre_t(const Team<T>& tm) {
-    for (int g = tid; g < tm.n; g += tm.nt) {
-      const int k = g / tm.bs;
-      tm.w[g] = off(tm, tm.s, k, g - k * tm.bs);
-    }
-  }
-  TMR_HD void pre_ss(const Team<T>& tm) {
-    part = part2 = T(0);
-    for (int g = tid; g < tm.n; g += tm.nt) {
-      tm.s[g] -= prow(tm, tm.w, g);
-      part += tm.v[g] * tm.s[g];
-      part2 += tm.v[g] * tm.v[g];
-    }
-  }
-  TMR_HD void store(const Team<T>&, const Src<T>&) {}  // x is dx already
-};
-
-// ---- the cluster variant: a rank's knots across its threads ---------------
-// p in rank r's shared memory, as another rank of the cluster addresses it
+// ---- the cluster variants: a rank's knots across its threads --------------
+// p in rank r's vectors (its shared memory, or its piece of the
+// workspace), as another rank of the cluster addresses it
 template <typename T>
 TMR_HD T* peer(T* p, const Team<T>& tm, int r) {
+  if (tm.wrank) return p + (ptrdiff_t)(r - tm.rank) * tm.wrank;
 #ifdef __CUDA_ARCH__
   return cooperative_groups::this_cluster().map_shared_rank(p, (unsigned)r);
 #else
@@ -718,14 +572,21 @@ TMR_HD T sym_row_strided(const T* D, int s, const T* v, int sv, int i,
 // update alone walks the rows (k, i) with i fastest, so dx is written in
 // whole sectors.  BS > 0 builds the block size in (the plants' 12, and 24
 // = nx + m of the 6-DoF arm's generic path), as the register variant
-// does; BS = 0 reads it at run time.
-template <typename T, int BS = 0>
+// does; BS = 0 reads it at run time.  GOP (the global operator) keeps the
+// rank's operator in its piece of the workspace, in the same layout, and
+// its vectors there too when they do not fit shared memory (a.vshared).
+// MULTI = false is the one-block cluster (C = 1, known at launch): the
+// same rows and phases, launched as plain blocks, its cluster barriers
+// the block's, no cluster slot, and s0 in s's place (s = s0 - P t reads
+// and writes each thread's own rows; only a neighbour rank reads s0
+// after it is overwritten).
+template <typename T, int BS = 0, bool GOP = false, bool MULTI = true>
 struct ClRows {
   int tid;
   T part, part2;
   T* x;  // the rank's rows of dx: only the thread of row g touches x_g
   const T *D, *P, *U;
-  static constexpr bool CLUSTER = true;
+  static constexpr bool CLUSTER = MULTI;
   static constexpr int MAX_NT = 768;   // 85 registers a thread
   static TMR_HD int bsz(const Team<T>& tm) { return BS > 0 ? BS : tm.bs; }
 
@@ -737,9 +598,10 @@ struct ClRows {
   }
   // every rank lays its memory out for knots_max knots, so a neighbour's
   // block sits where it would sit in one's own
-  static TMR_HD Team<T> carve(T* m, const Src<T>&, int N, int bs, int nt,
-                              int rank, int ranks, ptrdiff_t stride) {
+  static TMR_HD Team<T> carve(T* m, const Src<T>& src, const Args<T>& a,
+                              int nt, int rank, ptrdiff_t stride) {
     Team<T> t{};
+    const int N = a.N, bs = a.bs, ranks = a.ranks;
     const size_t nkm = knots_max(N, ranks), tri = (size_t)bs * (bs + 1) / 2,
                  nv = nkm * bs;
     t.N = N;
@@ -752,15 +614,17 @@ struct ClRows {
     t.k0 = first_knot(N, ranks, rank);
     t.nk = first_knot(N, ranks, rank + 1) - t.k0;
     t.n = t.nk * bs;
-    t.D = m;
+    const bool wvec = GOP && !a.vshared;   // the vectors in the workspace
+    t.wrank = wvec ? (ptrdiff_t)(a.wper / ranks) : 0;
+    t.D = GOP ? src.work + (size_t)rank * (a.wper / ranks) : m;
     t.P = t.D + nkm * tri;
     t.U = t.P + nkm * tri;
-    t.v = t.U + (nkm + 1) * bs * bs;
+    t.v = GOP && !wvec ? m : t.U + (nkm + 1) * bs * bs;
     t.p = t.v + nv;
     t.s = t.p + nv;
-    t.s0 = t.s + nv;
+    t.s0 = MULTI ? t.s + nv : t.s;   // one block: no neighbour reads s0
     t.w = t.s0 + nv;
-    t.red = t.w + nv;
+    t.red = wvec ? m : t.w + nv;
     t.cl = t.red + 2 * WARPS;
     if (rank > 0) {   // the previous rank's last knot
       const int last = t.k0 - first_knot(N, ranks, rank - 1) - 1;
@@ -792,8 +656,8 @@ struct ClRows {
     return sym_row_strided<BS>(P + kl, tm.ld, v + kl, tm.ld, i, bsz(tm));
   }
 
-  // the rank's operator into its shared memory, knot-fastest, converted
-  // once; r0 into v, p = 0, dx = 0
+  // the rank's operator into its shared memory (GOP: its piece of the
+  // workspace), knot-fastest, converted once; r0 into v, p = 0, dx = 0
   TMR_HD void load(const Team<T>& tm, const Src<T>& src, int t) {
     tid = t;
     part = part2 = T(0);
@@ -917,19 +781,18 @@ __device__ __forceinline__ void team_sum2(T& a, T& b, const Team<T>& tm) {
   b = __shfl_sync(0xffffffffu, warp_sum(in ? tm.red[WARPS + lane] : T(0)), 0);
 }
 
-// the cluster's sums of the blocks' sums v[0 .. nv-1]: thread 0 writes
-// them into slot `rank` of set `set` in every rank, a cluster barrier,
-// then every thread adds slots 0 .. C-1 in order
+// the cluster's sums of the blocks' sums v[0 .. nv-1] (every thread holds
+// them): thread r writes them into slot `rank` of set `set` in rank r, a
+// cluster barrier, then every thread adds slots 0 .. C-1 in order
 template <typename T>
 __device__ __forceinline__ void cluster_sums(T* v, int nv, const Team<T>& tm,
                                              int set) {
   cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
   T* slots = tm.cl + set * 2 * CLUSTER_MAX;
-  if (threadIdx.x == 0)
-    for (int r = 0; r < tm.ranks; ++r) {
-      T* dst = cl.map_shared_rank(slots, (unsigned)r);
-      for (int j = 0; j < nv; ++j) dst[j * CLUSTER_MAX + tm.rank] = v[j];
-    }
+  if ((int)threadIdx.x < tm.ranks) {
+    T* dst = cl.map_shared_rank(slots, threadIdx.x);
+    for (int j = 0; j < nv; ++j) dst[j * CLUSTER_MAX + tm.rank] = v[j];
+  }
   cl.sync();
   for (int j = 0; j < nv; ++j) {
     T acc = slots[j * CLUSTER_MAX];
@@ -1133,6 +996,22 @@ TMR_HD int pcg_block(Th* th, const Team<T>* tm, int ranks, const Src<T>& src,
   return it;
 }
 
+// the launch's operands for variant v at (N, bs) in values of `item`
+// bytes (the cluster's size, where the vectors live, the shared memory a
+// block and the workspace a scenario)
+template <typename T>
+Args<T> shape_args(int v, int B, int N, int bs, int item) {
+  Args<T> a{};
+  a.B = B;
+  a.N = N;
+  a.bs = bs;
+  a.ranks = variant_ranks(v, N, bs, item);
+  a.vshared = global_vectors_shared(N, bs, item);
+  a.smem = variant_smem_elems(v, N, bs, item);
+  a.wper = variant_work_elems(v, N, bs, item);
+  return a;
+}
+
 #ifdef __CUDACC__
 template <typename T, class Th>
 __device__ __forceinline__ void run_block(const Args<T>& a) {
@@ -1142,8 +1021,8 @@ __device__ __forceinline__ void run_block(const Args<T>& a) {
     rank = (int)cooperative_groups::this_cluster().block_rank();
   const size_t b = blockIdx.x / a.ranks;
   const Src<T> src = scenario(a, b);
-  const Team<T> tm = Th::carve(reinterpret_cast<T*>(smem_raw), src, a.N,
-                               a.bs, (int)blockDim.x, rank, a.ranks, 0);
+  const Team<T> tm = Th::carve(reinterpret_cast<T*>(smem_raw), src, a,
+                               (int)blockDim.x, rank, 0);
   Th th[1];
   const int it = pcg_block<T>(th, &tm, 1, src, a.ss != 0, a.pcode != ST_SAME,
                               a.relative != 0, a.max_iter, a.tol);
@@ -1156,109 +1035,112 @@ pcg_regs(const Args<T> a) {
   run_block<T, RegRow<T, BS>>(a);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS, 1) pcg_shared(const Args<T> a) {
-  run_block<T, ShRows<T, false>>(a);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS, 1) pcg_global(const Args<T> a) {
-  run_block<T, ShRows<T, true>>(a);
-}
-
 // one cluster of a.ranks blocks per scenario (the cluster dimension is set
-// at launch); BS as ClRows
-template <typename T, int BS>
-__global__ void __launch_bounds__(ClRows<T, BS>::MAX_NT, 1)
+// at launch; MULTI = false: one block per scenario); BS, GOP and MULTI as
+// ClRows
+template <typename T, int BS, bool GOP, bool MULTI>
+__global__ void __launch_bounds__(ClRows<T, BS, GOP, MULTI>::MAX_NT, 1)
 pcg_cluster(const Args<T> a) {
-  run_block<T, ClRows<T, BS>>(a);
+  run_block<T, ClRows<T, BS, GOP, MULTI>>(a);
 }
 
-// the launch of variant v: B blocks, or for the cluster B clusters of
-// a.ranks blocks
+// a cluster the card cannot hold at all (cudaOccupancyMaxActiveClusters 0)
+constexpr int NO_CLUSTER = -2;
+
+// the launch: B blocks, or B clusters of a.ranks blocks; the kernel's
+// attributes set (its shared memory, and clusters past the portable 8)
 template <typename T, class Th>
-cudaLaunchConfig_t config(int v, const Args<T>& a, void* stream,
-                          cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)a.B * a.ranks);
-  cfg.blockDim = dim3(Th::threads(a.N, a.bs, a.ranks));
-  cfg.dynamicSmemBytes = variant_smem_elems(v, a.N, a.bs, a.ranks) * sizeof(T);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+cudaError_t config(const void* kernel, const Args<T>& a, void* stream,
+                   cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  *cfg = {};
+  cfg->gridDim = dim3((unsigned)a.B * a.ranks);
+  cfg->blockDim = dim3(Th::threads(a.N, a.bs, a.ranks));
+  cfg->dynamicSmemBytes = a.smem * sizeof(T);
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg->dynamicSmemBytes);
   if (Th::CLUSTER) {
     attr->id = cudaLaunchAttributeClusterDimension;
     attr->val.clusterDim.x = a.ranks;
     attr->val.clusterDim.y = 1;
     attr->val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  return cfg;
+  return err;
+}
+
+// clusters of a.ranks blocks the card holds at once, or minus a CUDA error
+template <typename T, class Th>
+int max_clusters_of(void (*kernel)(const Args<T>), const Args<T>& a) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = config<T, Th>((const void*)kernel, a, nullptr, &attr, &cfg);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 template <typename T, class Th>
-int launch(int v, void (*kernel)(const Args<T>), const Args<T>& a,
-           void* stream) {
+int launch(void (*kernel)(const Args<T>), const Args<T>& a, void* stream) {
   if (a.B == 0) return 0;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config<T, Th>(v, a, stream, &attr);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cfg.dynamicSmemBytes);
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = config<T, Th>((const void*)kernel, a, stream, &attr, &cfg);
   if (err != cudaSuccess) return (int)err;
+  if (Th::CLUSTER) {   // a cluster the card cannot hold raises
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (n == 0) return NO_CLUSTER;
+  }
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// clusters of the cluster variant for (N, bs) that the card can hold at
-// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error
-template <typename T, int BS>
-int max_clusters_of(int N, int bs) {
-  Args<T> a{};
-  a.B = 1;
-  a.N = N;
-  a.bs = bs;
-  a.ranks = cluster_size(N, bs, sizeof(T));
-  if (a.ranks == 0) return -1;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      config<T, ClRows<T, BS>>(3, a, nullptr, &attr);
-  const void* kernel = (const void*)pcg_cluster<T, BS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cfg.dynamicSmemBytes);
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
-
-template <typename T>
-int max_clusters(int N, int bs) {
-  switch (bs) {
-    case 12: return max_clusters_of<T, 12>(N, bs);
-    case 24: return max_clusters_of<T, 24>(N, bs);
-    default: return max_clusters_of<T, 0>(N, bs);
-  }
-}
-
 #define TMR_PCG_REGS(BS) \
-  return launch<T, RegRow<T, BS>>(0, pcg_regs<T, BS>, a, stream)
-#define TMR_PCG_CLUSTER(BS) \
-  return launch<T, ClRows<T, BS>>(3, pcg_cluster<T, BS>, a, stream)
+  return launch<T, RegRow<T, BS>>(pcg_regs<T, BS>, a, stream)
+#define TMR_PCG_CLUSTER(BS, GOP, MULTI)                        \
+  return launch<T, ClRows<T, BS, GOP, MULTI>>(                 \
+      pcg_cluster<T, BS, GOP, MULTI>, a, stream)
+
+// clusters resident at once for the cluster variant (or the global
+// operator) that takes (N, bs)
+template <typename T>
+int max_clusters(int N, int bs, int item) {
+  const int v = variant(N, bs, item);
+  if (v == 0) return -1;
+  const Args<T> a = shape_args<T>(v, 1, N, bs, item);
+#define TMR_MAX(BS)                                                          \
+  return v == 3 ? max_clusters_of<T, ClRows<T, BS, false>>(                  \
+                      pcg_cluster<T, BS, false, true>, a)                    \
+                : max_clusters_of<T, ClRows<T, BS, true>>(                   \
+                      pcg_cluster<T, BS, true, true>, a)
+  switch (bs) {
+    case 12: TMR_MAX(12);
+    case 24: TMR_MAX(24);
+    default: TMR_MAX(0);
+  }
+#undef TMR_MAX
+}
 #else
 template <typename T, class Th>
-int run_host(int v, const Args<T>& a) {
+int run_host(const Args<T>& a) {
   const int nt = Th::threads(a.N, a.bs, a.ranks);
-  const size_t per = variant_smem_elems(v, a.N, a.bs, a.ranks);
-  std::vector<T> mem(per * a.ranks);
+  std::vector<T> mem(a.smem * a.ranks);
   std::vector<Th> th((size_t)nt * a.ranks);
   std::vector<Team<T>> tm(a.ranks);
   for (int b = 0; b < a.B; ++b) {
     const Src<T> src = scenario(a, b);
     for (int r = 0; r < a.ranks; ++r)
-      tm[r] = Th::carve(mem.data() + per * r, src, a.N, a.bs, nt, r, a.ranks,
-                        (ptrdiff_t)per);
+      tm[r] = Th::carve(mem.data() + a.smem * r, src, a, nt, r,
+                        (ptrdiff_t)a.smem);
     a.iters[b] = pcg_block<T>(th.data(), tm.data(), a.ranks, src, a.ss != 0,
                               a.pcode != ST_SAME, a.relative != 0,
                               a.max_iter, a.tol);
@@ -1266,24 +1148,38 @@ int run_host(int v, const Args<T>& a) {
   return 0;
 }
 
-#define TMR_PCG_REGS(BS) return run_host<T, RegRow<T, BS>>(0, a)
-#define TMR_PCG_CLUSTER(BS) return run_host<T, ClRows<T, BS>>(3, a)
+#define TMR_PCG_REGS(BS) return run_host<T, RegRow<T, BS>>(a)
+#define TMR_PCG_CLUSTER(BS, GOP, MULTI) \
+  return run_host<T, ClRows<T, BS, GOP, MULTI>>(a)
 #endif
 
 // K4 by variant v (for values of `item` bytes, which set the cluster's
-// size); -1 for a shape, a variant or a workspace the kernel cannot take
+// size and where the global operator's vectors live); -1 for a shape, a
+// variant or a workspace the kernel cannot take, NO_CLUSTER for a
+// cluster the card cannot hold
 template <typename T>
 int launch_pcg(const void* diag_p, const void* upper, const void* pdiag_p,
                const void* r0, void* dx, void* iters, void* work, int B,
                int N, int bs, int dcode, int pcode, int ss, int relative,
                int max_iter, double tol, void* stream, int v, int item) {
-  const Args<T> a{diag_p, pdiag_p, (const T*)upper, (const T*)r0, (T*)dx,
-                  (T*)work, (int*)iters, B, N, bs, dcode, pcode, ss,
-                  relative, max_iter, (T)tol,
-                  v == 3 ? cluster_size(N, bs, item) : 1};
   (void)stream;
   if ((long long)N * bs * bs > INDEX_LIMIT || !takes(v, N, bs, item))
     return -1;
+  Args<T> a = shape_args<T>(v, B, N, bs, item);
+  if (a.wper > 0 && work == nullptr && B > 0) return -1;
+  a.D = diag_p;
+  a.P = pdiag_p;
+  a.U = (const T*)upper;
+  a.r0 = (const T*)r0;
+  a.dx = (T*)dx;
+  a.work = (T*)work;
+  a.iters = (int*)iters;
+  a.dcode = dcode;
+  a.pcode = pcode;
+  a.ss = ss;
+  a.relative = relative;
+  a.max_iter = max_iter;
+  a.tol = (T)tol;
   switch (v) {
     case 0:
       switch (bs) {
@@ -1296,25 +1192,24 @@ int launch_pcg(const void* diag_p, const void* upper, const void* pdiag_p,
         case 14: TMR_PCG_REGS(14);
       }
       return -1;
-    case 1:
-#ifdef __CUDACC__
-      return launch<T, ShRows<T, false>>(1, pcg_shared<T>, a, stream);
-#else
-      return run_host<T, ShRows<T, false>>(1, a);
-#endif
-    case 3:
+    case 2:
       switch (bs) {
-        case 12: TMR_PCG_CLUSTER(12);
-        case 24: TMR_PCG_CLUSTER(24);
-        default: TMR_PCG_CLUSTER(0);
+        case 12: TMR_PCG_CLUSTER(12, true, true);
+        case 24: TMR_PCG_CLUSTER(24, true, true);
+        default: TMR_PCG_CLUSTER(0, true, true);
       }
     default:
-      if (work == nullptr && B > 0) return -1;
-#ifdef __CUDACC__
-      return launch<T, ShRows<T, true>>(2, pcg_global<T>, a, stream);
-#else
-      return run_host<T, ShRows<T, true>>(2, a);
-#endif
+      if (a.ranks == 1)
+        switch (bs) {
+          case 12: TMR_PCG_CLUSTER(12, false, false);
+          case 24: TMR_PCG_CLUSTER(24, false, false);
+          default: TMR_PCG_CLUSTER(0, false, false);
+        }
+      switch (bs) {
+        case 12: TMR_PCG_CLUSTER(12, false, true);
+        case 24: TMR_PCG_CLUSTER(24, false, true);
+        default: TMR_PCG_CLUSTER(0, false, true);
+      }
   }
 }
 #undef TMR_PCG_REGS
@@ -1350,7 +1245,7 @@ TMR_PCG_ENTRY(tmr_pcg_f64, double)
 #undef TMR_PCG_ENTRY
 
 // the variant that takes (N, bs) in values of `item` bytes: 0 registers,
-// 1 shared operator, 2 global operator, 3 cluster (ops/fused_pcg.variant)
+// 3 cluster, 2 global operator (ops/fused_pcg.variant)
 extern "C" int tmr_pcg_variant(int N, int bs, int item) {
   return tmr_pcg::variant(N, bs, item);
 }
@@ -1366,23 +1261,25 @@ extern "C" long long tmr_pcg_smem_elems(int N, int bs, int item) {
   return (long long)tmr_pcg::smem_elems(N, bs, item);
 }
 
-// the workspace of one scenario, in values (the global operator's vectors)
+// the workspace of one scenario, in values (the global operator's
+// converted operator, and its vectors past shared memory)
 extern "C" long long tmr_pcg_work_elems(int N, int bs, int item) {
   return (long long)tmr_pcg::work_elems(N, bs, item);
 }
 
 // the workspace of one scenario of variant v, in values (tmr_pcg_*_as)
-extern "C" long long tmr_pcg_variant_work_elems(int N, int bs, int v) {
-  return (long long)tmr_pcg::variant_work_elems(v, N, bs);
+extern "C" long long tmr_pcg_variant_work_elems(int N, int bs, int item,
+                                                int v) {
+  return (long long)tmr_pcg::variant_work_elems(v, N, bs, item);
 }
 
-// cudaOccupancyMaxActiveClusters for the cluster variant at (N, bs) in
-// values of `item` bytes (minus a CUDA error; -1 for a shape it does not
-// take, and in the host build, which has no card)
+// cudaOccupancyMaxActiveClusters for the cluster (or the global operator)
+// that takes (N, bs) in values of `item` bytes (minus a CUDA error; -1 for
+// the register variant's shapes, and in the host build, which has no card)
 extern "C" int tmr_pcg_max_clusters(int N, int bs, int item) {
 #ifdef __CUDACC__
-  return item == 4 ? tmr_pcg::max_clusters<float>(N, bs)
-                   : tmr_pcg::max_clusters<double>(N, bs);
+  return item == 4 ? tmr_pcg::max_clusters<float>(N, bs, item)
+                   : tmr_pcg::max_clusters<double>(N, bs, item);
 #else
   (void)N;
   (void)bs;

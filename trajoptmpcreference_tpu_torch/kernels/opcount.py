@@ -96,7 +96,7 @@ extern "C" long long count_pcg(const double* d, const double* up,
   const int v = tmr_pcg::variant(N, bs, item);
   std::vector<Num> D = nums(d, nD), UP = nums(up, nU), PD = nums(pd, nD),
                    R0 = nums(r0, nR), DX(nR),
-                   W((size_t)B * tmr_pcg::variant_work_elems(v, N, bs));
+                   W((size_t)B * tmr_pcg::variant_work_elems(v, N, bs, item));
   std::vector<int> it(B);
   tmr_count::ops = 0;
   tmr_pcg::launch_pcg<Num>(D.data(), UP.data(), PD.data(), R0.data(),

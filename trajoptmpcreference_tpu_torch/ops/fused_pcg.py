@@ -3,13 +3,14 @@
 Counterpart of trajoptmpcreference_tpu/ops/pallas_pcg.py.  The whole
 Krylov loop of a scenario runs inside one CUDA thread block
 (kernels/csrc/pcg.cu), where the XLA-style ``btridiag.pcg`` launches a
-dozen small ops per iteration.  Four variants (``variant``): two rows of
+dozen small ops per iteration.  Three variants (``variant``): two rows of
 the Schur system per thread with their rows of the operator and the
-preconditioner in registers; for other shapes, the operator in shared
-memory; for shapes over one block's shared memory, a cluster of up to 8
-blocks per scenario, each holding a run of knots, the operator spread
-over the cluster's shared memory (``cluster_size``); past 8 blocks' shared
-memory, the operator in device memory and the vectors in a workspace.
+preconditioner in registers, for the plants' shapes; for every other
+shape, a thread-block cluster of up to 16 blocks per scenario (one block
+where it fits), each holding a run of knots, the operator spread over the
+cluster's shared memory (``cluster_size``); past 16 blocks' shared memory,
+a cluster of 16 whose operator is written once, converted and laid out
+for coalesced reads, into a workspace in device memory.
 
 The packed diagonal blocks and their inverses may be stored narrower than
 the operands (``make_batched_pcg``'s ``operator_dtype`` and
@@ -78,7 +79,9 @@ def _unpack_sym(packed, bs: int):
 # the storage of the packed diagonal blocks and their inverses, as pcg.cu
 # reads it (Storage): a dtype the same as the operands' is code 0
 STORAGE = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
-VARIANTS = ("registers", "shared operator", "global operator", "cluster")
+# K4's variants by number (pcg.cu ``variant``; 1, the shared operator, is
+# retired)
+VARIANTS = {0: "registers", 2: "global operator", 3: "cluster"}
 # K4 indexes a scenario's upper blocks with an int
 INDEX_LIMIT = 2 ** 31 - 1
 
@@ -91,8 +94,8 @@ def _pcg_library():
 def variant(N: int, bs: int, dtype: torch.dtype, fn=None) -> int:
     """The K4 variant that takes (N, bs) in ``dtype`` (pcg.cu
     ``tmr_pcg_variant``, from the built library unless another build's
-    entry is given): 0 registers, 1 shared operator, 2 global operator,
-    3 cluster."""
+    entry is given): 0 registers, 3 cluster, 2 global operator (a
+    cluster of 16 with its operator in device memory)."""
     fn = fn or _pcg_library().tmr_pcg_variant
     return int(fn(N, bs, dtype.itemsize))
 
@@ -100,7 +103,7 @@ def variant(N: int, bs: int, dtype: torch.dtype, fn=None) -> int:
 def cluster_size(N: int, bs: int, dtype: torch.dtype, fn=None) -> int:
     """The blocks of the cluster variant's cluster at (N, bs) in ``dtype``
     (pcg.cu ``tmr_pcg_cluster_size``): the smallest cluster whose blocks
-    each hold their run of knots, 0 past 8 blocks."""
+    each hold their run of knots, 1 to 16, 0 past 16 blocks."""
     fn = fn or _pcg_library().tmr_pcg_cluster_size
     return int(fn(N, bs, dtype.itemsize))
 
@@ -117,8 +120,9 @@ def smem_bytes(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> int:
 def check_fits(N: int, bs: int, dtype: torch.dtype, smem_elems=None) -> None:
     """Raise ValueError for a shape K4 cannot address: a scenario's upper
     blocks past its int index.  Every other shape takes a variant (the
-    cluster past one block's shared memory, the global operator past 8
-    blocks'), whose block this checks against the limit."""
+    cluster past the register variant's shapes, the global operator past
+    16 blocks' shared memory), whose block this checks against the
+    limit."""
     if N * bs * bs > INDEX_LIMIT:
         raise ValueError(
             f"K4 indexes a scenario's upper blocks with an int: N={N}, "
@@ -248,7 +252,8 @@ def launch(fn, diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
     build of pcg.cu on CPU tensors) on these operands: allocates dx, the
     iteration counts and the global operator's workspace (``work_elems``:
     the build's ``tmr_pcg_work_elems``), and raises on a nonzero return
-    (a CUDA error, a refused launch, or -1 for a shape the entry refuses).
+    (a CUDA error, a refused launch, -1 for a shape the entry refuses, -2
+    for a cluster the card cannot hold).
     With ``variant``, ``fn`` is a ``tmr_pcg_<f32|f64>_as`` entry, called
     with it last.  Returns (dx, iters)."""
     B, N, bs = r0.shape
@@ -265,7 +270,9 @@ def launch(fn, diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
             _precond_code(precond), int(relative), max_iter, float(tol),
             ctypes.c_void_p(stream), *extra)
     if rc != 0:
-        raise RuntimeError(f"kernel pcg failed: return code {rc}")
+        why = {-1: " (a shape or variant K4 does not take)",
+               -2: " (the card holds no cluster of this shape)"}.get(rc, "")
+        raise RuntimeError(f"kernel pcg failed: return code {rc}{why}")
     return dx, iters
 
 
@@ -288,8 +295,8 @@ def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
         fn, work = getattr(lib, f"tmr_pcg_{suffix}"), lib.tmr_pcg_work_elems
     else:
         fn = getattr(lib, f"tmr_pcg_{suffix}_as")
-        work = (lambda N, bs, _item:
-                lib.tmr_pcg_variant_work_elems(N, bs, variant))
+        work = (lambda N, bs, item:
+                lib.tmr_pcg_variant_work_elems(N, bs, item, variant))
     dx, iters = launch(fn, diag_p, upper, pdiag_p, r0, precond=precond,
                        tol=tol, max_iter=max_iter, relative=relative,
                        work_elems=work, variant=variant,
