@@ -1,0 +1,11 @@
+"""Device milliseconds per control step of the operations launched
+inside the kkt layer's span (hand kernels included), over the
+traced stretch."""
+
+LAYER = "kkt"
+
+
+def read(run):
+    s = run.stretch
+    secs = [o.seconds for o in s.ops if o.layer == LAYER]
+    return 1e3 * sum(secs) / s.steps if secs else None
