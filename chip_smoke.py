@@ -339,6 +339,19 @@ REPLACES = {"fd_grad": "trajoptmpcreference_tpu/ops/lanes.py:444",
             "pcg": "trajoptmpcreference_tpu/ops/pallas_pcg.py:123"}
 
 
+
+def zero_launches():
+    """Count the hand kernels' launches from 0 (utils.spans' counts)."""
+    from trajoptmpcreference_tpu_torch.utils import spans
+    spans.reset()
+
+
+def launch_counts(*names):
+    """{kernel: launches since zero_launches()} for fd_grad, fd, task_vec,
+    pcg."""
+    from trajoptmpcreference_tpu_torch.utils import spans
+    return {n: spans.count(f"launch/{n}") for n in names}
+
 def log(msg):
     print(msg, flush=True)
 
@@ -574,10 +587,8 @@ def main():
     insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev)
 
     # ---- 6. the main path
-    launched = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
-                FP.pcg_fused_kernel)
     loop = lambda tag, knobs: flagship_episode(
-        torch, F, lanes, K, FP, x0s, goals, launched, knobs, tag,
+        torch, F, lanes, K, x0s, goals, knobs, tag,
         lambda by: episode_weighted(kernels, inputs, by, lane_bound,
                                     device_ms, tag))
     counts, free_profile = loop("[main]", {})
@@ -586,7 +597,7 @@ def main():
     main_step += (device_op_names(torch, main_step[0]),)
 
     # ---- 7. the PCG-SS closed loop through K4
-    pcg_counts = pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched)
+    pcg_counts = pcg_episode(torch, F, x0s, goals)
     counts["pcg"] = pcg_counts["pcg"]
     k4 = pcg_counts["pcg"]
     log(f"[pcg] K4 episode-weighted device time: {k4} launches x "
@@ -642,7 +653,7 @@ def main():
         f"({rk4_profile['wall'] / free_profile['wall']:.2f}x)")
 
     # ---- 16. the dense KKT (method "N")
-    dense_kkt(torch, F, lanes, K, FP, knot_params, events_ms, x0s_np, goals_np,
+    dense_kkt(torch, F, lanes, K, knot_params, events_ms, x0s_np, goals_np,
               dev)
 
     # ---- 17. RTI: f64 on/off from the cold step's plan; one step's cost
@@ -675,11 +686,11 @@ def main():
     # ---- 24. K4 past the register variant's shapes: the cluster, the
     # global operator, the generic path's operator and the long-horizon
     # flagships
-    beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
+    beyond_shared(torch, BT, FP, F, opcount, knot_params,
                   events_ms, device_ms, x0s_np, goals_np, dev)
 
     # ---- 25. the examples on the card
-    examples_on_card(torch, FP, lanes, K, dev)
+    examples_on_card(torch, dev)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -824,8 +835,6 @@ def parallel_layer(torch, F, lanes, K, BT, knot_params, events_ms, x0s_np,
     from trajoptmpcreference_tpu_torch.parallel import make_mesh, shard_solve
     from trajoptmpcreference_tpu_torch.parallel.multihost import CALLS
     from trajoptmpcreference_tpu_torch.solvers.sqp import make_sqp
-    kernels = {"fd_grad": lanes.fd_grad_kernel, "fd": lanes.fd_kernel,
-               "task_vec": K.task_vec_kernel}
     plain = ((lanes.LaneDynamics, "fd"), (lanes.LaneDynamics, "fd_grad"),
              (K.LaneKinematics, "task_vec"))
     f32, f64 = torch.float32, torch.float64
@@ -845,12 +854,12 @@ def parallel_layer(torch, F, lanes, K, BT, knot_params, events_ms, x0s_np,
     def counted(fn):
         """fn() with K1-K3's launches and the collectives counted from 0."""
         torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
+        zero_launches()
         CALLS.clear()
         out = fn()
         torch.cuda.synchronize()
-        return out, {n: k.launches for n, k in kernels.items()}, dict(CALLS)
+        return (out, launch_counts("fd_grad", "fd", "task_vec"),
+                dict(CALLS))
 
     def fields(res):
         return {k: v for k, v in res._asdict().items() if torch.is_tensor(v)}
@@ -1369,7 +1378,7 @@ def assembly_launches(torch, F, lanes, K, knot_params, x0s, goals, itype):
     assert lane_counts == [L_MAIN], lane_counts
 
 
-def dense_kkt(torch, F, lanes, K, FP, knot_params, events_ms, x0s_np, goals_np,
+def dense_kkt(torch, F, lanes, K, knot_params, events_ms, x0s_np, goals_np,
               dev):
     """Phase 16.  Method "N" against method "S" on the flagship's cold
     solve at B_DENSE scenarios in f64 (the KKT is (T + M)^2 = 1,920^2 a
@@ -1385,8 +1394,6 @@ def dense_kkt(torch, F, lanes, K, FP, knot_params, events_ms, x0s_np, goals_np,
     U0 = torch.zeros((B_DENSE, 6, N - 1), dtype=f64, device=dev)
     plain = ((lanes.LaneDynamics, "fd"), (lanes.LaneDynamics, "fd_grad"),
              (K.LaneKinematics, "task_vec"))
-    kernels = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
-               FP.pcg_fused_kernel)
     runs = {"N": ("N", True, ()), "S": ("S", True, ()),
             "S off": ("S", False, ()), "S ulp": ("S", False, plain)}
     sols, counts = {}, {}
@@ -1394,13 +1401,13 @@ def dense_kkt(torch, F, lanes, K, FP, knot_params, events_ms, x0s_np, goals_np,
         _, cost, solver = F.flagship(N=N, dtype=f64, device=dev, method=method,
                                      use_kernels=on)
         torch.cuda.synchronize()
-        for k in kernels:
-            k.launches = 0
+        zero_launches()
         with moved_outputs(torch, dev, targets, 2.0 ** -52):
             sols[key] = solver.solve(X0, U0,
                                      cost.default_params._replace(xg=goals))
         torch.cuda.synchronize()
-        counts[key] = [k.launches for k in kernels]
+        counts[key] = list(launch_counts("fd_grad", "fd", "task_vec",
+                                         "pcg").values())
     scale = sols["S"].U.abs().max()
     gap = lambda a, b: float((sols[a].U - sols[b].U).abs().max() / scale)
     rel, floor = gap("N", "S"), gap("S ulp", "S off")
@@ -1690,10 +1697,8 @@ def storage_dtypes(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
 def k4_as(FP, fn):
     """While in the block, the fused PCG's solves on the card call ``fn``
     in K4's place (ops/fused_pcg.make_batched_pcg looks K4 up at each
-    call).  K4's wrapper counts its launches on the function its name is
-    bound to, so ``fn`` carries a counter, which nothing reads."""
+    call)."""
     saved = FP.pcg_fused_kernel
-    fn.launches = 0
     FP.pcg_fused_kernel = fn
     try:
         yield
@@ -1701,7 +1706,7 @@ def k4_as(FP, fn):
         FP.pcg_fused_kernel = saved
 
 
-def beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
+def beyond_shared(torch, BT, FP, F, opcount, knot_params,
                   events_ms, device_ms, x0s_np, goals_np, dev):
     """Phase 24.  K4 past the register variant's shapes: the cluster
     variant (variant 3: a cluster of C <= 16 blocks per scenario, one where
@@ -1803,8 +1808,7 @@ def beyond_shared(torch, BT, FP, F, opcount, knot_params, lanes, K,
         del ops
     generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev)
     for n_long in LONG_NS:
-        long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np,
-                     dev, n_long)
+        long_horizon(torch, F, FP, events_ms, x0s_np, goals_np, dev, n_long)
     return times
 
 
@@ -1859,8 +1863,7 @@ def generic_pcg(torch, BT, FP, F, knot_params, x0s_np, goals_np, dev):
             assert all(math.isfinite(v) for v in r), (pre, label, r)
 
 
-def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev,
-                 long_n):
+def long_horizon(torch, F, FP, events_ms, x0s_np, goals_np, dev, long_n):
     """One cold PCG-SS solve of the long-horizon flagship (N = long_n,
     dt = 0.015, B = 512, PCG_KNOBS, use_kernel_pcg) through K1-K4: in f64
     with K4 on against K4's plain version in its place (k4_as), equal exit
@@ -1923,14 +1926,11 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev,
     assert fault > bar, (fault, bar)
     del sols, a, b
     solver, X0, U0, params = problem(torch.float32)
-    kernels = (lanes.fd_grad_kernel, lanes.fd_kernel, K.task_vec_kernel,
-               kernel)
     torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    zero_launches()
     res = solver.solve(X0, U0, params)
     torch.cuda.synchronize()
-    counts = [k.launches for k in kernels]
+    counts = list(launch_counts("fd_grad", "fd", "task_vec", "pcg").values())
     def solve():
         return solver.solve(X0, U0, params)
 
@@ -1950,7 +1950,7 @@ def long_horizon(torch, F, FP, lanes, K, events_ms, x0s_np, goals_np, dev,
     assert all(c > 0 for c in counts), counts
 
 
-def examples_on_card(torch, FP, lanes, K, dev):
+def examples_on_card(torch, dev):
     """Phase 25.  The examples (trajoptmpcreference_tpu_torch.examples) on
     the card, each printing its own lines: mpc_arm6 as shipped and with
     --torque-limit 6, in f64 (its final end-effector error and max |u|
@@ -1967,16 +1967,13 @@ def examples_on_card(torch, FP, lanes, K, dev):
         [sys.executable, "-c", "import chip_smoke; chip_smoke.examples_child()"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    kernels = {"fd_grad": lanes.fd_grad_kernel, "fd": lanes.fd_kernel,
-               "task_vec": K.task_vec_kernel, "pcg": FP.pcg_fused_kernel}
 
     def counted(tag, fn):
         torch.cuda.synchronize()
-        for k in kernels.values():
-            k.launches = 0
+        zero_launches()
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: k.launches for name, k in kernels.items()}
+        counts = launch_counts("fd_grad", "fd", "task_vec", "pcg")
         log(f"[examples] {tag}: launches {json.dumps(counts)}")
         assert min(counts["fd_grad"], counts["fd"], counts["task_vec"]) > 0
         assert counts["pcg"] == 0
@@ -2228,8 +2225,7 @@ def violation_profile(torch, res, tag, label):
     return out
 
 
-def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
-                     tag, weighted):
+def flagship_episode(torch, F, lanes, K, x0s, goals, knobs, tag, weighted):
     """The flagship closed loop (phase 6; with the torque-limited knobs,
     phases 9 and 10; with the iLQR knobs, phase 13; with the RK4 knobs,
     phase 15; with use_lanes=False, on the per-sample plant, phase 19):
@@ -2242,18 +2238,16 @@ def flagship_episode(torch, F, lanes, K, FP, x0s, goals, launched, knobs,
     Returns (launch counts, profile with the wall)."""
     by_lanes, restore = record_lane_counts(lanes, K)
     torch.cuda.synchronize()
-    for k in launched:
-        k.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     plant, res = F.run_episode(x0s, goals, steps=STEPS, cold_steps=COLD_STEPS,
                                N=N, **knobs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     restore()
-    counts = {"fd_grad": lanes.fd_grad_kernel.launches,
-              "fd": lanes.fd_kernel.launches,
-              "task_vec": K.task_vec_kernel.launches}
-    assert FP.pcg_fused_kernel.launches == 0    # methods S and iLQR run no PCG
+    counts = launch_counts("fd_grad", "fd", "task_vec")
+    # methods S and iLQR run no PCG
+    assert launch_counts("pcg") == {"pcg": 0}
     use_lanes = knobs.get("use_lanes", True)
     limited = knobs.get("torque_limit", 0.0) > 0
     if not use_lanes:
@@ -2350,20 +2344,16 @@ def insitu_pcg(torch, BT, FP, F, knot_params, X0, U0, x0s, goals, dev):
         assert stats["kernel"][i] <= bound, (what, stats)
 
 
-def pcg_episode(torch, F, lanes, K, FP, x0s, goals, launched):
+def pcg_episode(torch, F, x0s, goals):
     """The PCG-SS flagship closed loop through K1-K4 (phase 7)."""
     torch.cuda.synchronize()
-    for k in launched:
-        k.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     plant, res = F.run_episode(x0s, goals, steps=STEPS, cold_steps=COLD_STEPS,
                                N=N, use_kernel_pcg=True, **F.PCG_KNOBS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"fd_grad": lanes.fd_grad_kernel.launches,
-              "fd": lanes.fd_kernel.launches,
-              "task_vec": K.task_vec_kernel.launches,
-              "pcg": FP.pcg_fused_kernel.launches}
+    counts = launch_counts("fd_grad", "fd", "task_vec", "pcg")
     gate_ok, finite = report_loop(torch, F, plant, x0s, goals, res, wall,
                                   counts, "[pcg]",
                                   f"PCG-SS flagship through K4, {COLD_STEPS} cold")

@@ -19,6 +19,7 @@ from trajoptmpcreference_tpu_torch import convert
 from trajoptmpcreference_tpu_torch.kernels import _build
 from trajoptmpcreference_tpu_torch.ops import kinematics as tkin
 from trajoptmpcreference_tpu_torch.ops import lanes as tlanes
+from trajoptmpcreference_tpu_torch.utils import spans
 
 ROBOTS = ["arm2", "arm3", "arm6", "rpr"]
 
@@ -93,14 +94,14 @@ def test_cpu_tensors_take_the_plain_versions():
     robot = convert.robot_from_numpy(jax_urdf.serial_arm(3))
     dyn = tlanes.LaneDynamics(robot, use_kernel_fd=True, use_kernel_fd_grad=True)
     kin = tkin.LaneKinematics(robot, use_kernel_task=True)
-    counters = (tlanes.fd_kernel, tlanes.fd_grad_kernel, tkin.task_vec_kernel)
-    before = [k.launches for k in counters]
+    counters = ("launch/fd", "launch/fd_grad", "launch/task_vec")
+    before = [spans.count(k) for k in counters]
     q, qd, u = (torch.tensor(a) for a in _f32_inputs(3, 9))
     q, qd, u = q[:3].contiguous(), qd[:3].contiguous(), u[:3].contiguous()
     assert torch.equal(dyn.fd(q, qd, u), tlanes.fd_lanes(robot, q, qd, u))
     assert torch.equal(dyn.fd_grad(q, qd, u), tlanes.fd_grad_lanes(robot, q, qd, u))
     assert torch.equal(kin.task_vec(q, qd), kin.task_vec_L(q, qd))
-    assert [k.launches for k in counters] == before == [0, 0, 0]
+    assert [spans.count(k) for k in counters] == before == [0, 0, 0]
 
 
 def test_kernel_wrappers_reject_cpu_and_bad_operands():

@@ -23,8 +23,6 @@ from trajoptmpcreference_tpu_torch.kernels import _build, opcount  # noqa: E402
 from trajoptmpcreference_tpu_torch.kernels.timing import device_ms, events_ms  # noqa: E402
 from trajoptmpcreference_tpu_torch.ops import btridiag as BT  # noqa: E402
 from trajoptmpcreference_tpu_torch.ops import fused_pcg as FP  # noqa: E402
-from trajoptmpcreference_tpu_torch.ops import kinematics as K  # noqa: E402
-from trajoptmpcreference_tpu_torch.ops import lanes  # noqa: E402
 from trajoptmpcreference_tpu_torch.solvers.sqp import knot_params  # noqa: E402
 
 
@@ -48,9 +46,9 @@ def main(argv=None) -> int:
         "23": lambda: C.storage_dtypes(torch, BT, FP, F, knot_params, X0, U0,
                                        x0s, goals, dev),
         "24": lambda: C.beyond_shared(torch, BT, FP, F, opcount, knot_params,
-                                      lanes, K, events_ms, device_ms, x0s_np,
-                                      goals_np, dev),
-        "25": lambda: C.examples_on_card(torch, FP, lanes, K, dev),
+                                      events_ms, device_ms, x0s_np, goals_np,
+                                      dev),
+        "25": lambda: C.examples_on_card(torch, dev),
     }
     for phase in phases:
         t = time.perf_counter()

@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from trajoptmpcreference_tpu_torch.utils import spans
+
 
 def _bmv(A, x):
     """Batched block matvec [..., i, j] @ [..., j]."""
@@ -275,7 +277,7 @@ def pcg(A: BlockTridiag, b: torch.Tensor, Pinv: BlockTridiag,
     done = nu.abs() <= thr
     it = torch.zeros(lead, dtype=torch.long, device=b.device)
     for k in range(max_iter):
-        if bool(done.all()):
+        if spans.host_bool(done.all(), "btridiag.pcg"):
             break
         Ap = btd_matvec(A, p)
         pAp = _dot(p, Ap)

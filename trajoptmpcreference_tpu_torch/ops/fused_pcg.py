@@ -51,6 +51,7 @@ from trajoptmpcreference_tpu_torch.ops.btridiag import (
     btd_matvec,
 )
 from trajoptmpcreference_tpu_torch.ops.lanes import SMEM_LIMIT, on_card
+from trajoptmpcreference_tpu_torch.utils import spans
 
 PRECONDS = ("J", "BJ", "SS")
 
@@ -202,7 +203,7 @@ def pcg_fused_plain(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
     done = m.abs() <= thr
     it = torch.zeros(nu.shape, dtype=torch.int32, device=r0.device)
     for _ in range(max_iter):
-        if bool(done.all()):
+        if spans.host_bool(done.all(), "fused_pcg.plain"):
             break
         Ap = matvec(p)
         pAp = _dot(p, Ap)
@@ -301,11 +302,8 @@ def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
                        tol=tol, max_iter=max_iter, relative=relative,
                        work_elems=work, variant=variant,
                        stream=torch.cuda.current_stream(r0.device).cuda_stream)
-    pcg_fused_kernel.launches += 1
+    spans.launched("pcg")
     return dx, iters
-
-
-pcg_fused_kernel.launches = 0
 
 
 def pack_operands(S: BlockTridiag, r0, precond: str):

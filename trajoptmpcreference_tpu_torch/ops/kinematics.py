@@ -56,6 +56,7 @@ from trajoptmpcreference_tpu_torch.ops.lanes import (
     pack_robot,
     to_lanes,
 )
+from trajoptmpcreference_tpu_torch.utils import spans
 
 
 def _kin_consts(robot: RobotModel, offset, in_chain, order, is_rev, dtype,
@@ -105,11 +106,8 @@ def task_vec_kernel(packed: torch.Tensor, n: int, q, qd):
     out = torch.empty((2 * k, L), dtype=q.dtype, device=q.device)
     if L:
         launch("task_vec", n, packed, out, q, qd)
-        task_vec_kernel.launches += 1
+        spans.launched("task_vec")
     return out
-
-
-task_vec_kernel.launches = 0
 
 
 class _Chain:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from trajoptmpcreference_tpu_torch.models.robot import REVOLUTE, RobotModel
+from trajoptmpcreference_tpu_torch.utils import spans
 
 
 # ---------------------------------------------------------------- helpers
@@ -472,11 +473,8 @@ def fd_kernel(packed: torch.Tensor, n: int, q, qd, u):
     out = torch.empty((n, L), dtype=q.dtype, device=q.device)
     if L:
         launch("fd", n, packed, out, q, qd, u)
-        fd_kernel.launches += 1
+        spans.launched("fd")
     return out
-
-
-fd_kernel.launches = 0
 
 
 def fd_grad_kernel(packed: torch.Tensor, n: int, q, qd, u):
@@ -486,11 +484,8 @@ def fd_grad_kernel(packed: torch.Tensor, n: int, q, qd, u):
     out = torch.empty((n, 3 * n, L), dtype=q.dtype, device=q.device)
     if L:
         launch("fd_grad", n, packed, out, q, qd, u)
-        fd_grad_kernel.launches += 1
+        spans.launched("fd_grad")
     return out
-
-
-fd_grad_kernel.launches = 0
 
 
 class LaneDynamics:

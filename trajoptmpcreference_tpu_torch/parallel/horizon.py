@@ -49,6 +49,7 @@ from trajoptmpcreference_tpu_torch.parallel.multihost import (
     all_gather_tiled,
     all_reduce_sum,
 )
+from trajoptmpcreference_tpu_torch.utils import spans
 
 
 class ShardedBTD(NamedTuple):
@@ -338,7 +339,7 @@ def sharded_pcg(A: ShardedBTD, b: torch.Tensor, group,
     done = nu.abs() <= thr      # NaN / warm-start guard (btridiag.pcg)
     it = torch.zeros(nu.shape, dtype=torch.long, device=b.device)
     for _ in range(max_iter):
-        if bool(done.all()):
+        if spans.host_bool(done.all(), "horizon.pcg"):
             break
         Ap = sharded_btd_matvec(A, p, group)
         pAp = _pvdot(p, Ap, group)

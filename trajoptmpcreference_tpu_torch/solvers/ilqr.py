@@ -48,6 +48,7 @@ from trajoptmpcreference_tpu_torch.solvers.sqp import (
     _where,
     knot_params,
 )
+from trajoptmpcreference_tpu_torch.utils import spans
 
 
 def _T(M):
@@ -320,7 +321,7 @@ class ILQRSolver:
         false = torch.zeros_like(done0)
         s = dict(alpha=torch.ones_like(J), done=done0, accepted=false,
                  Xc=X, Uc=U, dJ=torch.zeros_like(J), J_new=J)
-        while not bool(s["done"].all()):
+        while not spans.host_bool(s["done"].all(), "ilqr.line_search"):
             alpha = s["alpha"]
             Xc, Uc = self.rollout(X, U, K, kff, alpha)
             # cancellation-safe merit change: a difference, never two totals
@@ -402,7 +403,7 @@ class ILQRSolver:
                        exit_code=exit_code, done=done)
             # batch-invariance freeze (ilqr.py:389-391)
             s = {k: _where(s["done"], s[k], v) for k, v in new.items()}
-            if bool(s["done"].all()):
+            if spans.host_bool(s["done"].all(), "ilqr.round"):
                 break
         return s["X"], s["U"], s["K"], s["exit_code"], s["it"], s["J"]
 
@@ -437,7 +438,7 @@ class ILQRSolver:
         # diverges (non-finite, or |x| > 1e6) restarts from zero controls
         bad_plan = (~torch.isfinite(Xtail).flatten(-2).all(-1)
                     | (Xtail.abs().flatten(-2).amax(-1) > 1e6))
-        if bool(bad_plan.any()):
+        if spans.host_bool(bad_plan.any(), "ilqr.plan_reset"):
             u0 = _where(bad_plan, torch.zeros_like(u0), u0)
             Xtail = _where(bad_plan, self._open_loop(x0[..., 0], u0), Xtail)
         x0 = torch.cat([x0[..., :1], Xtail], -1)
@@ -472,7 +473,7 @@ class ILQRSolver:
             new["cstate"] = C.select_state(s["done"], s["cstate"], cstate1)
             s = {k: v if k == "cstate" else _where(s["done"], s[k], v)
                  for k, v in new.items()}
-            if bool(s["done"].all()):
+            if spans.host_bool(s["done"].all(), "ilqr.outer"):
                 break
         return ILQRResult(X=s["X"], U=s["U"], K=s["K"],
                           exit_ilqr=s["exit_ilqr"], exit_soft=s["exit_soft"],

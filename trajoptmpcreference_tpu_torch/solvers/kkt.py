@@ -54,6 +54,7 @@ from trajoptmpcreference_tpu_torch.ops.btridiag import (
 from trajoptmpcreference_tpu_torch.ops.fused_pcg import make_batched_pcg
 from trajoptmpcreference_tpu_torch.solvers import constraints as C
 from trajoptmpcreference_tpu_torch.solvers.costs import Cost
+from trajoptmpcreference_tpu_torch.utils import spans
 
 
 class KKTBlocks(NamedTuple):
@@ -121,6 +122,7 @@ class KKTSystem:
         return self.nx + self.m
 
     # ------------------------------------------------------------- blocks
+    @spans.traced("KKTSystem.form_blocks")
     def form_blocks(self, X, U, xs, cost_params, cstate) -> KKTBlocks:
         """All per-knot KKT blocks (ref: TrajoptMPCReference.py:118-271)
         in one batched pass over the (B, N-1) stage knots.
@@ -411,6 +413,7 @@ class KKTSystem:
         dxu = torch.cat([_bmv(iGxx, rx), _bmv(iGuu, ru)], dim=-1)
         return dxu, torch.cat([lam_d, lam_h], dim=-1)
 
+    @spans.traced("KKTSystem.solve_schur")
     def solve_schur(self, blocks: KKTBlocks, rho, use_pcg: bool = False,
                     pcg_tol: float = 1e-6, pcg_max_iter: int = 100,
                     precond: str = "SS", guess: Optional[torch.Tensor] = None,
@@ -424,46 +427,51 @@ class KKTSystem:
         nx + m), stats)."""
         split = self._can_split_schur()
         condensed = not split and self._can_condense_hard()
-        if split:
-            S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
-        elif condensed:
-            S, gam, caux = self._schur_blocks_condensed(blocks, rho)
-            if guess is not None:
-                guess = guess[..., :self.nx]
-        else:
-            S, gam, invG, E, F = self.schur_blocks(blocks, rho)
-        if use_pcg:
-            if self.use_kernel_pcg:
-                solve = _fused_pcg_solver(self.N, S.bs, precond, pcg_tol,
-                                          pcg_max_iter, pcg_relative)
-                g0 = torch.zeros_like(gam) if guess is None else guess
-                lam, iters = solve(S, gam, g0)
-                stats = SchurSolveStats(iters, iters < pcg_max_iter)
+        with spans.span("KKTSystem.schur_blocks"):
+            if split:
+                S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
+            elif condensed:
+                S, gam, caux = self._schur_blocks_condensed(blocks, rho)
+                if guess is not None:
+                    guess = guess[..., :self.nx]
             else:
-                res = pcg(S, gam, preconditioner(S, precond), guess=guess,
-                          exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
-                          relative=pcg_relative, trace_residual=trace_residual)
-                lam = res.x
-                stats = SchurSolveStats(res.iters, res.converged,
-                                        nu_trace=res.nu_trace,
-                                        res_trace=res.res_trace)
-        else:
-            if self.exact_schur in ("cr", "cr_refine"):
-                lam = btd_cyclic_reduction(S, gam)
-                if self.exact_schur == "cr_refine":
-                    lam = lam + btd_cyclic_reduction(S, gam - btd_matvec(S, lam))
+                S, gam, invG, E, F = self.schur_blocks(blocks, rho)
+        with spans.span("btridiag.solve"):
+            if use_pcg:
+                if self.use_kernel_pcg:
+                    solve = _fused_pcg_solver(self.N, S.bs, precond, pcg_tol,
+                                              pcg_max_iter, pcg_relative)
+                    g0 = torch.zeros_like(gam) if guess is None else guess
+                    lam, iters = solve(S, gam, g0)
+                    stats = SchurSolveStats(iters, iters < pcg_max_iter)
+                else:
+                    res = pcg(S, gam, preconditioner(S, precond), guess=guess,
+                              exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
+                              relative=pcg_relative,
+                              trace_residual=trace_residual)
+                    lam = res.x
+                    stats = SchurSolveStats(res.iters, res.converged,
+                                            nu_trace=res.nu_trace,
+                                            res_trace=res.res_trace)
             else:
-                lam = btd_block_thomas(S, gam)
-            batch = rho.shape
-            stats = SchurSolveStats(
-                torch.zeros(batch, dtype=torch.long, device=rho.device),
-                torch.ones(batch, dtype=torch.bool, device=rho.device))
-        if split:
-            dxu = self._recover_dxu_split(iGxx, iGuu, blocks, lam)
-        elif condensed:
-            dxu, lam = self._recover_condensed(blocks, caux, lam)
-        else:
-            dxu = self.recover_dxu(invG, E, F, blocks, lam)
+                if self.exact_schur in ("cr", "cr_refine"):
+                    lam = btd_cyclic_reduction(S, gam)
+                    if self.exact_schur == "cr_refine":
+                        lam = lam + btd_cyclic_reduction(
+                            S, gam - btd_matvec(S, lam))
+                else:
+                    lam = btd_block_thomas(S, gam)
+                batch = rho.shape
+                stats = SchurSolveStats(
+                    torch.zeros(batch, dtype=torch.long, device=rho.device),
+                    torch.ones(batch, dtype=torch.bool, device=rho.device))
+        with spans.span("KKTSystem.recover_dxu"):
+            if split:
+                dxu = self._recover_dxu_split(iGxx, iGuu, blocks, lam)
+            elif condensed:
+                dxu, lam = self._recover_condensed(blocks, caux, lam)
+            else:
+                dxu = self.recover_dxu(invG, E, F, blocks, lam)
         return dxu, lam, stats
 
     def solve_schur_sharded(self, blocks: KKTBlocks, rho, mesh, axis: str,
@@ -511,7 +519,7 @@ def solve_kkt(KKT, b):
     batch holds one LU's memory, never a second batch-wide system."""
     x, info = torch.linalg.solve_ex(KKT, b)
     bad = (info != 0) | ~torch.isfinite(x).all(-1)
-    if bool(bad.any()):
+    if spans.host_bool(bad.any(), "kkt.solve_kkt"):
         idx = bad.nonzero(as_tuple=True)
         x = x.index_put(idx, _lstsq(KKT[idx], b[idx]))
     return x, bad

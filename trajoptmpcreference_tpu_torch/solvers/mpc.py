@@ -26,6 +26,7 @@ from trajoptmpcreference_tpu_torch.solvers.sqp import (
     _where,
     make_sqp,
 )
+from trajoptmpcreference_tpu_torch.utils import spans
 
 MPC_METHODS = ("iLQR", "QP-N", "QP-S", "QP-PCG-J", "QP-PCG-BJ", "QP-PCG-SS")
 
@@ -107,46 +108,48 @@ class MPCController:
         x = x0
         xs_, us_, Js, its, codes = [], [], [], [], []
         for _ in range(steps):
-            # the current state enters the plan head
-            Xp = Xp.clone()
-            Xp[..., :, 0] = x
-            if is_sqp:
-                res = solver.solve(Xp, Up, cost_params=cost_params,
-                                   cstate=cstate, guess=lam)
-                it, code = res.sqp_iters, res.exit_sqp
-                # shift the multipliers like the plan and zero-fill the
-                # vacated tail rows (mpc.py:145-154)
-                lam = torch.roll(res.lam, -self.shift, dims=-2)
-                lam = torch.where((rows < N - self.shift)[:, None], lam,
-                                  torch.zeros_like(lam))
-            else:
-                # iLQR: no multiplier warm start; the lam carry passes
-                # through (mpc.py:131-134)
-                res = solver.solve(Xp, Up, cost_params=cost_params,
-                                   cstate=cstate)
-                it, code = res.iters, res.exit_ilqr
-            u0 = res.U[..., :, 0]
-            Xp, Up = _shift_plan(res.X, res.U, self.shift)
-            cstate = C.shift_all_soft(solver.cset, res.cstate, self.shift)
-            if math.isfinite(self.watchdog_u_max):
-                bad = (~torch.isfinite(res.U).flatten(-2).all(-1)
-                       | ~torch.isfinite(res.X).flatten(-2).all(-1)
-                       | (u0.abs().amax(-1) > self.watchdog_u_max))
-                u0 = _where(bad, torch.zeros_like(u0), u0)
-                Xp = _where(bad, x[..., None].expand_as(Xp), Xp)
-                Up = _where(bad, torch.zeros_like(Up), Up)
-                lam = _where(bad, torch.zeros_like(lam), lam)
-                cstate = C.select_state(bad, fresh, cstate)
-            x = self.sim_plant.step(x, u0, dt)
-            if math.isfinite(self.sim_qd_max):
-                nq = self.sim_plant.nq
-                x = torch.cat([x[..., :nq], x[..., nq:].clamp(
-                    -self.sim_qd_max, self.sim_qd_max)], dim=-1)
-            xs_.append(x)
-            us_.append(u0)
-            Js.append(res.J)
-            its.append(it)
-            codes.append(code)
+            with spans.step_span():
+                # the current state enters the plan head
+                Xp = Xp.clone()
+                Xp[..., :, 0] = x
+                if is_sqp:
+                    res = solver.solve(Xp, Up, cost_params=cost_params,
+                                       cstate=cstate, guess=lam)
+                    it, code = res.sqp_iters, res.exit_sqp
+                    # shift the multipliers like the plan and zero-fill the
+                    # vacated tail rows (mpc.py:145-154)
+                    lam = torch.roll(res.lam, -self.shift, dims=-2)
+                    lam = torch.where((rows < N - self.shift)[:, None], lam,
+                                      torch.zeros_like(lam))
+                else:
+                    # iLQR: no multiplier warm start; the lam carry passes
+                    # through (mpc.py:131-134)
+                    res = solver.solve(Xp, Up, cost_params=cost_params,
+                                       cstate=cstate)
+                    it, code = res.iters, res.exit_ilqr
+                u0 = res.U[..., :, 0]
+                Xp, Up = _shift_plan(res.X, res.U, self.shift)
+                cstate = C.shift_all_soft(solver.cset, res.cstate, self.shift)
+                if math.isfinite(self.watchdog_u_max):
+                    bad = (~torch.isfinite(res.U).flatten(-2).all(-1)
+                           | ~torch.isfinite(res.X).flatten(-2).all(-1)
+                           | (u0.abs().amax(-1) > self.watchdog_u_max))
+                    u0 = _where(bad, torch.zeros_like(u0), u0)
+                    Xp = _where(bad, x[..., None].expand_as(Xp), Xp)
+                    Up = _where(bad, torch.zeros_like(Up), Up)
+                    lam = _where(bad, torch.zeros_like(lam), lam)
+                    cstate = C.select_state(bad, fresh, cstate)
+                with spans.span("MPCController.simulate"):
+                    x = self.sim_plant.step(x, u0, dt)
+                    if math.isfinite(self.sim_qd_max):
+                        nq = self.sim_plant.nq
+                        x = torch.cat([x[..., :nq], x[..., nq:].clamp(
+                            -self.sim_qd_max, self.sim_qd_max)], dim=-1)
+                xs_.append(x)
+                us_.append(u0)
+                Js.append(res.J)
+                its.append(it)
+                codes.append(code)
         return MPCResult(X_applied=torch.stack([x0] + xs_, dim=-1),
                          U_applied=torch.stack(us_, dim=-1),
                          J_solve=torch.stack(Js, dim=-1),

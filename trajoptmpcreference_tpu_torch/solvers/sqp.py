@@ -44,6 +44,7 @@ from trajoptmpcreference_tpu_torch.models.plants import Plant
 from trajoptmpcreference_tpu_torch.solvers import constraints as C
 from trajoptmpcreference_tpu_torch.solvers.costs import Cost, total_cost_diff
 from trajoptmpcreference_tpu_torch.solvers.kkt import KKTSystem, SchurSolveStats
+from trajoptmpcreference_tpu_torch.utils import spans
 
 SQP_METHODS = ("N", "S", "PCG-J", "PCG-BJ", "PCG-SS")
 
@@ -267,6 +268,7 @@ class SQPSolver:
                            torch.full_like(J0, 10.0))
 
     # ----------------------------------------------------------- line search
+    @spans.traced("SQPSolver.line_search")
     def line_search(self, X, U, dxu, J, c, merit, xs, cost_params, cstate,
                     mu=None, D_base=None) -> LineSearchResult:
         """(ref: TrajoptMPCReference.py:606-744).  ``mu`` defaults to the
@@ -325,7 +327,7 @@ class SQPSolver:
         s = dict(alpha=torch.ones_like(J), done=false, accepted=false,
                  ls_iter=torch.zeros(J.shape, dtype=torch.long, device=J.device),
                  dJ=zero, J_new=J, c_new=c, merit_new=merit, D=zero, ratio=zero)
-        while not bool(s["done"].all()):
+        while not spans.host_bool(s["done"].all(), "sqp.line_search"):
             dJ, J_new, c_new, merit_new, D, ratio, ok = evaluate(s["alpha"])
             done = ok | ~(s["alpha"] > o.alpha_min)
             new = dict(alpha=torch.where(done, s["alpha"],
@@ -412,6 +414,7 @@ class SQPSolver:
         return dxu, lam, stats, no_singular()
 
     # --------------------------------------------------- one SQP iteration
+    @spans.traced("SQPSolver.sqp_iterate")
     def sqp_iterate(self, X, U, J, c, merit, rho, drho, guess, mu, xs,
                     cost_params, cstate, hit_max):
         """One SQP iteration: QP solve, line search, rho schedule, exit
@@ -501,11 +504,12 @@ class SQPSolver:
                        exit_code=exit_code, done=done, guess=lam)
             # batch-invariance freeze (sqp.py:605-615)
             s = {k: _where(s["done"], s[k], v) for k, v in new.items()}
-            if bool(s["done"].all()):
+            if spans.host_bool(s["done"].all(), "sqp.round"):
                 break
         return s["X"], s["U"], s["exit_code"], s["it"], s["J"], s["c"], s["guess"]
 
     # ----------------------------------------------------------- full solve
+    @spans.traced("SQPSolver.solve")
     def solve(self, x0, u0, cost_params=None, cstate=None,
               guess=None) -> SQPResult:
         """Full SQP with the soft-constraint outer loop
@@ -554,7 +558,7 @@ class SQPSolver:
             new["cstate"] = C.select_state(s["done"], s["cstate"], cstate1)
             s = {k: v if k == "cstate" else _where(s["done"], s[k], v)
                  for k, v in new.items()}
-            if bool(s["done"].all()):
+            if spans.host_bool(s["done"].all(), "sqp.outer"):
                 break
         return SQPResult(X=s["X"], U=s["U"], exit_sqp=s["exit_sqp"],
                          exit_soft=s["exit_soft"], outer_iters=s["outer_it"],

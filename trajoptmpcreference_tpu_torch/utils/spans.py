@@ -1,0 +1,163 @@
+"""The port's own tracing: host-time spans, host reads of device flags,
+and kernel launch counts, kept in memory until a caller takes a
+``snapshot()``.
+
+* ``span(name)``: while tracing is off (the default) it returns one shared
+  no-op context and reads no clock.  While it is on, it adds the span's
+  calls, inclusive nanoseconds and self nanoseconds (inclusive minus its
+  child spans) under ``name``, on ``time.perf_counter_ns``; while a
+  ``torch.profiler`` is active it also opens
+  ``torch.profiler.record_function(name)``, so the span lands in the
+  profiler's trace on the clock of the device operations it launched.
+* ``host_bool(t, site)``: ``bool(t)`` for a device flag, the one way the
+  port waits on the device for a decision.  Every read is counted under
+  ``sync/<site>``; while tracing is on the wait is also timed as the child
+  span ``sync/<site>``, so it leaves the self time of the span around it.
+* ``launched(kernel)``: counts one launch of a hand kernel under
+  ``launch/<kernel>``, always.
+
+``enable(True)`` switches tracing on; ``reset()`` clears every total and
+count.  The spans are named after the layer call they time (the layers of
+PERF.md section 3):
+
+    MPCController.run           one control step (args: the step's index)
+      MPCController.simulate    the simulated plant and its clamp
+      SQPSolver.solve
+        SQPSolver.sqp_iterate
+          KKTSystem.form_blocks
+          KKTSystem.solve_schur
+            KKTSystem.schur_blocks   the split, condensed or generic assembly
+            btridiag.solve           cyclic reduction, Thomas or PCG
+            KKTSystem.recover_dxu
+          SQPSolver.line_search
+        sync/<site>             inside host_bool
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+_on = False
+_totals: Dict[str, List[int]] = {}       # name -> [calls, ns, self ns]
+_syncs: Dict[str, int] = {}              # site -> host reads
+_launches: Dict[str, int] = {}           # kernel -> launches
+_stack: List["_Span"] = []
+_step = 0                                # control steps traced so far
+_clock = time.perf_counter_ns
+_profiling = torch.autograd._profiler_enabled
+OFF = contextlib.nullcontext()           # what ``span`` returns while off
+
+
+class _Span:
+    __slots__ = ("name", "args", "rf", "t0", "child")
+
+    def __init__(self, name: str, args: Optional[str] = None):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        self.rf = None
+        if _profiling():
+            self.rf = torch.profiler.record_function(self.name, self.args)
+            self.rf.__enter__()
+        self.child = 0
+        _stack.append(self)
+        self.t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        ns = _clock() - self.t0
+        _stack.pop()
+        if _stack:
+            _stack[-1].child += ns
+        tot = _totals.get(self.name)
+        if tot is None:
+            tot = _totals[self.name] = [0, 0, 0]
+        tot[0] += 1
+        tot[1] += ns
+        tot[2] += ns - self.child
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def enable(on: bool = True) -> None:
+    """Switch tracing on or off.  Counts are kept either way."""
+    global _on
+    _on = bool(on)
+
+
+def span(name: str):
+    """A context that times its block under ``name`` while tracing is on;
+    the shared no-op ``OFF`` while it is off."""
+    if not _on:
+        return OFF
+    return _Span(name)
+
+
+def traced(name: str):
+    """Decorator: the call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not _on:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def step_span():
+    """The span of one control step, ``MPCController.run``, carrying the
+    step's index (counted from the last ``reset``) as its profiler args,
+    so every span of one control step shares an identifier."""
+    global _step
+    if not _on:
+        return OFF
+    _step += 1
+    return _Span("MPCController.run", str(_step - 1))
+
+
+def host_bool(t: torch.Tensor, site: str) -> bool:
+    """``bool(t)``, counted under ``sync/<site>``; timed as the span
+    ``sync/<site>`` while tracing is on."""
+    _syncs[site] = _syncs.get(site, 0) + 1
+    if not _on:
+        return bool(t)
+    with _Span("sync/" + site):
+        return bool(t)
+
+
+def launched(kernel: str) -> None:
+    """Count one launch of hand kernel ``kernel`` (fd, fd_grad, task_vec,
+    pcg) under ``launch/<kernel>``."""
+    _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+def count(key: str) -> int:
+    """The count under ``key`` (``launch/fd``, ``sync/sqp.round``, ...)."""
+    kind, _, name = key.partition("/")
+    return {"launch": _launches, "sync": _syncs}[kind].get(name, 0)
+
+
+def reset() -> None:
+    """Clear every span total and every count (launches included)."""
+    global _step
+    _totals.clear()
+    _syncs.clear()
+    _launches.clear()
+    _step = 0
+
+
+def snapshot() -> dict:
+    """A copy of what has been recorded since the last ``reset``:
+    ``{"spans": {name: {"calls", "ns", "self_ns"}}, "counts": {key: n}}``."""
+    return {"spans": {name: {"calls": c, "ns": ns, "self_ns": own}
+                      for name, (c, ns, own) in _totals.items()},
+            "counts": {**{f"sync/{k}": n for k, n in _syncs.items()},
+                       **{f"launch/{k}": n for k, n in _launches.items()}}}

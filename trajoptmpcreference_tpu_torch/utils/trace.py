@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from trajoptmpcreference_tpu_torch.solvers.sqp import SQPSolver, knot_params
+from trajoptmpcreference_tpu_torch.utils import spans
 
 
 class SQPTrace(NamedTuple):
@@ -109,7 +110,7 @@ def solve_traced(solver: SQPSolver, x0, u0, cost_params=None, cstate=None):
                  drho=torch.where(keep, drho1, s["drho"]),
                  done=s["done"] | exiting,
                  guess=torch.where(m(lam), lam, s["guess"]))
-        if bool(s["done"].all()):
+        if spans.host_bool(s["done"].all(), "trace.solve_traced"):
             break
 
     def stack(vs):
