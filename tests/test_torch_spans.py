@@ -226,6 +226,40 @@ def test_per_step_reads_a_snapshot():
     assert _tool().per_step({"spans": {}, "counts": {"sync/x": 1}}) is None
 
 
+def test_per_step_reads_replayed_solves():
+    """Two steps of three exact solves each: one eager call, one capture
+    (which replays) and four replays.  The replayed calls enter none of
+    the three parts, whose calls say so."""
+    ms = 1_000_000
+    span = lambda calls, incl, own: {"calls": calls, "ns": incl * ms,
+                                     "self_ns": own * ms}
+    snap = {"spans": {
+        "MPCController.run": span(2, 40, 10),
+        "KKTSystem.solve_schur": span(6, 30, 4),
+        "KKTSystem.schur_blocks": span(2, 4, 4),
+        "btridiag.solve": span(2, 10, 10),
+        "KKTSystem.recover_dxu": span(2, 2, 2),
+        "graph/solve_schur.capture": span(1, 6, 6),
+        "graph/solve_schur.replay": span(5, 4, 4)},
+        "counts": {"graph/solve_schur.capture": 1,
+                   "graph/solve_schur.replay": 9}}
+    out = _tool().per_step(snap)
+    assert out["linsolve.calls_per_step"] == 3
+    assert out["graphs_by_site"] == {"graph/solve_schur.capture": 0.5,
+                                     "graph/solve_schur.replay": 2.5}
+    assert out["graph_ms_by_site"] == {"graph/solve_schur.capture": 3,
+                                       "graph/solve_schur.replay": 2}
+    assert abs(out["linsolve.graph_hit_pct"] - 100 * 5 / 6) < 1e-9
+    assert out["linsolve_parts_calls_per_step"] == {
+        "KKTSystem.schur_blocks": 1, "btridiag.solve": 1,
+        "KKTSystem.recover_dxu": 1}
+    assert out["linsolve_parts_ms"]["btridiag.solve"] == 5
+    assert out["accounted_pct"] == 100
+    # no exact solve, no share
+    del snap["spans"]["KKTSystem.solve_schur"]
+    assert _tool().per_step(snap)["linsolve.graph_hit_pct"] is None
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():

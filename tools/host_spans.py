@@ -15,8 +15,13 @@ same with the port's spans on.  Writes one JSON line per cell to ``--out``
 and a summary to standard output:
 
 * ``host``: ``per_step`` of the host-timed steps' snapshot: host
-  milliseconds per step by layer, host reads per step by site, and the
-  share of ``MPCController.run`` that the spans' self times account for;
+  milliseconds per step by layer, host reads per step by site, the exact
+  Schur solve's graph captures and replays per step and the share of its
+  calls replayed, and the share of ``MPCController.run`` that the spans'
+  self times account for.  A replayed ``KKTSystem.solve_schur`` enters
+  ``graph/solve_schur.replay`` and not its three parts (assembly, solve,
+  recovery): their times and calls count the eager calls and captures
+  alone;
 * ``on_cost_pct``: the host-timed steps' mean time over the untraced
   steps' mean, less one (``on_cost_median_pct``: the median of the pairs'
   ratios, less one);
@@ -68,9 +73,13 @@ def per_step(snap: dict):
     def ms(name, key="ns"):
         return sp.get(name, {}).get(key, 0) / 1e6 / steps
 
-    # the host reads of these steps: one sync/<site> span each
+    # the host reads of these steps: one sync/<site> span each; the
+    # graph captures and replays likewise
     syncs = {n: s["calls"] / steps for n, s in sp.items()
              if n.startswith("sync/")}
+    graphs = {n: s["calls"] / steps for n, s in sp.items()
+              if n.startswith("graph/")}
+    solves = sp.get(LAYERS["linsolve"], {}).get("calls", 0)
     return {
         "steps": steps,
         "step_ms": ms("MPCController.run"),
@@ -84,6 +93,14 @@ def per_step(snap: dict):
         "mpc.host_self_ms_per_step": (ms("MPCController.run", "self_ns")
                                       + ms("MPCController.simulate", "self_ns")),
         "linsolve_parts_ms": {n: ms(n) for n in LINSOLVE_PARTS},
+        "linsolve_parts_calls_per_step": {
+            n: sp.get(n, {}).get("calls", 0) / steps for n in LINSOLVE_PARTS},
+        "linsolve.calls_per_step": solves / steps,
+        "graphs_by_site": graphs,
+        "graph_ms_by_site": {n: ms(n) for n in sp if n.startswith("graph/")},
+        "linsolve.graph_hit_pct": (
+            100 * sp.get("graph/solve_schur.replay", {}).get("calls", 0)
+            / solves if solves else None),
         "syncs_by_site": syncs,
         "sync_wait_ms_by_site": {n: ms(n) for n in sp if n.startswith("sync/")},
         "accounted_pct": 100 * sum(s["self_ns"] for s in sp.values())
@@ -345,6 +362,14 @@ def measure_cell(name, args, card, device, pauses, emit):
           f"{h['host.sync_wait_ms_per_step']:.3f} ms; syncs "
           f"{h['host.syncs_per_step']:.2f}; accounted "
           f"{h['accounted_pct']:.3f}%", flush=True)
+    hit = h["linsolve.graph_hit_pct"]
+    print(f"[{name}] solve_schur {h['linsolve.calls_per_step']:.2f} calls a "
+          f"step, graph calls a step {json.dumps(h['graphs_by_site'])}, "
+          f"replayed {'-' if hit is None else f'{hit:.2f}%'}; parts (absent "
+          f"on replayed calls): ms a step "
+          f"{json.dumps({k: round(v, 3) for k, v in h['linsolve_parts_ms'].items()})}, "
+          f"calls a step {json.dumps(h['linsolve_parts_calls_per_step'])}",
+          flush=True)
     for label, e in profiled.items():
         print(f"[{name}] profiled ({label}): idle "
               f"{e.get('idle_pct', float('nan')):.2f}%, device ms by "

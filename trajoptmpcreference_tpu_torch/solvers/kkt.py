@@ -17,12 +17,18 @@ Schur assemblies ``solve_schur`` dispatches between:
 
 The Schur system is solved exactly (block-Thomas or cyclic reduction) or
 by PCG: ``btridiag.pcg``, or with ``use_kernel_pcg`` the fused PCG of
-ops/fused_pcg.py (kernel K4 on CUDA tensors).  Method "N" assembles and
-solves the dense KKT system instead (``solve_dense``): one (T + M)^2
-matrix per scenario, LU with partial pivoting, and the normal equations
-for the scenarios whose factorization meets a zero pivot.  With a
-DeviceMesh, ``solve_schur_sharded`` partitions the generic assembly and
-its solve over the mesh's horizon dim (parallel/horizon.py).
+ops/fused_pcg.py (kernel K4 on CUDA tensors).  On CUDA tensors the exact
+solve (assembly, block solve, recovery) is captured once per shape as a
+CUDA graph and replayed, since its few hundred small operations cost the
+host far more to dispatch than the device to run; it launches no hand
+kernel, reads no device flag on the host, and its shapes are static.
+Blocks wider than 16 (the flagship's generic path) stay eager: their
+batched LU cannot be captured.  Method "N" assembles and solves the dense
+KKT system instead (``solve_dense``): one (T + M)^2 matrix per scenario,
+LU with partial pivoting, and the normal equations for the scenarios
+whose factorization meets a zero pivot.  With a DeviceMesh,
+``solve_schur_sharded`` partitions the generic assembly and its solve
+over the mesh's horizon dim (parallel/horizon.py).
 
 Every block carries the scenario batch as its leading axis: H (B, N, n, n),
 g (B, N, n), A (B, N-1, nx, nx), B (B, N-1, nx, nu), defect (B, N, nx),
@@ -33,6 +39,8 @@ width n = nx + nu with decoupled unit-diagonal phantom controls.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 from typing import NamedTuple, Optional
@@ -100,6 +108,11 @@ class KKTSystem:
     # its plain version on CPU tensors) instead of btridiag.pcg; the
     # counterpart of the JAX use_pallas_pcg
     use_kernel_pcg: bool = False
+    # the exact solve's CUDA graphs by _graph_key, the most recent last:
+    # None after a key's first (eager) call, then (graph, inputs, outputs)
+    _graphs: collections.OrderedDict = dataclasses.field(
+        default_factory=collections.OrderedDict, init=False, repr=False,
+        compare=False)
 
     @property
     def nx(self) -> int:
@@ -413,6 +426,124 @@ class KKTSystem:
         dxu = torch.cat([_bmv(iGxx, rx), _bmv(iGuu, ru)], dim=-1)
         return dxu, torch.cat([lam_d, lam_h], dim=-1)
 
+    def _branch(self) -> str:
+        """The Schur assembly ``solve_schur`` takes: "split", "condensed"
+        or "generic"."""
+        if self._can_split_schur():
+            return "split"
+        return "condensed" if self._can_condense_hard() else "generic"
+
+    def _assemble(self, blocks: KKTBlocks, rho):
+        """The branch's Schur assembly, in the span
+        ``KKTSystem.schur_blocks``.  Returns (S, gam, recover): recover(lam)
+        gives (dxu, lam in the generic [defect; hard] layout)."""
+        with spans.span("KKTSystem.schur_blocks"):
+            branch = self._branch()
+            if branch == "split":
+                S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
+                return S, gam, lambda lam: (
+                    self._recover_dxu_split(iGxx, iGuu, blocks, lam), lam)
+            if branch == "condensed":
+                S, gam, caux = self._schur_blocks_condensed(blocks, rho)
+                return S, gam, lambda lam: self._recover_condensed(
+                    blocks, caux, lam)
+            S, gam, invG, E, F = self.schur_blocks(blocks, rho)
+            return S, gam, lambda lam: (
+                self.recover_dxu(invG, E, F, blocks, lam), lam)
+
+    def _solve_exact(self, blocks: KKTBlocks, rho):
+        """The exact Schur solve: the branch's assembly, block-Thomas or
+        cyclic reduction (``exact_schur``), then the recovery.  Returns
+        (dxu, lam).  Eager calls and the CUDA graphs of
+        ``_solve_exact_graphed`` both run it."""
+        S, gam, recover = self._assemble(blocks, rho)
+        with spans.span("btridiag.solve"):
+            if self.exact_schur in ("cr", "cr_refine"):
+                lam = btd_cyclic_reduction(S, gam)
+                if self.exact_schur == "cr_refine":
+                    lam = lam + btd_cyclic_reduction(
+                        S, gam - btd_matvec(S, lam))
+            else:
+                lam = btd_block_thomas(S, gam)
+        with spans.span("KKTSystem.recover_dxu"):
+            return recover(lam)
+
+    def _widest_lu(self) -> int:
+        """The widest block the exact solve factors: nx and nu (the split
+        inverse of G), the hard rows' m (W, condensed), the Schur block
+        bs = nx + m and, where G does not split, n (generic)."""
+        branch = self._branch()
+        if branch == "split":
+            return max(self.nx, self.nu)
+        if branch == "condensed":
+            return max(self.nx, self.nu, self.m)
+        return max(self.bs, self.nu if self._g_split() is not None
+                   else self.n)
+
+    def _graph_key(self, blocks: KKTBlocks, rho) -> tuple:
+        """What the captured exact solve depends on: the branch and the
+        static sizes of this system, the device, and the shape, dtype and
+        strides of each input the branch reads (``_GRAPH_FIELDS``), then
+        of rho."""
+        branch = self._branch()
+        ins = [getattr(blocks, f) for f in _GRAPH_FIELDS[branch]] + [rho]
+        return (branch, self._g_split(), self.exact_schur, self.N, self.nx,
+                self.nu, self.m, rho.device,
+                tuple((t.shape, t.dtype, t.stride()) for t in ins))
+
+    def _solve_exact_graphed(self, blocks: KKTBlocks, rho):
+        """``_solve_exact`` on CUDA tensors as one CUDA graph per key
+        (``_graph_key``): a key's first call runs eagerly (cuBLAS handles
+        and the cached constants are made there), its second captures the
+        solve and replays it, every later call copies the inputs into the
+        graph's own and replays.  The most recent ``_GRAPH_KEYS`` keys are
+        kept.  Returns copies of dxu and lam, never the graph's buffers:
+        callers keep lam as the next warm start."""
+        graphs = self._graphs
+        key = self._graph_key(blocks, rho)
+        if key not in graphs:
+            graphs[key] = None
+            while len(graphs) > _GRAPH_KEYS:
+                graphs.popitem(last=False)
+            return self._solve_exact(blocks, rho)
+        graphs.move_to_end(key)
+        fields = _GRAPH_FIELDS[key[0]]
+        srcs = [getattr(blocks, f) for f in fields] + [rho]
+        if graphs[key] is None:
+            with spans.graphed("solve_schur.capture"):
+                graphs[key] = self._capture(blocks, fields, srcs)
+        graph, inputs, (dxu, lam) = graphs[key]
+        with spans.graphed("solve_schur.replay"):
+            for dst, src in zip(inputs, srcs):
+                dst.copy_(src)
+            graph.replay()
+            return dxu.clone(), lam.clone()
+
+    def _capture(self, blocks: KKTBlocks, fields, srcs):
+        """(graph, its inputs, its (dxu, lam)): ``_solve_exact`` run once
+        eagerly on the capture stream (which makes that stream's cuBLAS
+        workspace outside the capture), then captured there into a graph
+        with its own memory pool.  The inputs keep the strides of the
+        call's own (A and B are views into the dynamics jacobian), so the
+        graph runs the eager call's operations on the same layouts."""
+        inputs = tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                           device=t.device).copy_(t)
+                       for t in srcs)
+        static = blocks._replace(**dict(zip(fields, inputs)))
+        graph = torch.cuda.CUDAGraph()
+        stream = _capture_stream(inputs[-1].device)
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            self._solve_exact(static, inputs[-1])
+            torch.cuda.synchronize(stream.device)
+            with _no_hand_kernels("KKTSystem.solve_schur"):
+                graph.capture_begin()
+                try:
+                    out = self._solve_exact(static, inputs[-1])
+                finally:
+                    graph.capture_end()
+        return graph, inputs, out
+
     @spans.traced("KKTSystem.solve_schur")
     def solve_schur(self, blocks: KKTBlocks, rho, use_pcg: bool = False,
                     pcg_tol: float = 1e-6, pcg_max_iter: int = 100,
@@ -423,55 +554,41 @@ class KKTSystem:
         condensed or generic assembly.  guess (B, N, nx + m) warm-starts
         PCG (sliced to its defect rows on the condensed core);
         trace_residual carries the PCG dual trace in the stats
-        (btridiag.pcg path only).  Returns (dxu (B, N, n), lam (B, N,
-        nx + m), stats)."""
-        split = self._can_split_schur()
-        condensed = not split and self._can_condense_hard()
-        with spans.span("KKTSystem.schur_blocks"):
-            if split:
-                S, gam, iGxx, iGuu = self._schur_blocks_split(blocks, rho)
-            elif condensed:
-                S, gam, caux = self._schur_blocks_condensed(blocks, rho)
-                if guess is not None:
-                    guess = guess[..., :self.nx]
+        (btridiag.pcg path only).  The exact solve of CUDA tensors runs as
+        a CUDA graph (``_solve_exact_graphed``) where its blocks are at
+        most ``_GRAPH_LU_MAX`` wide and no capture is already under way.
+        Returns (dxu (B, N, n), lam (B, N, nx + m), stats)."""
+        if not use_pcg:
+            if (blocks.H.is_cuda and self._widest_lu() <= _GRAPH_LU_MAX
+                    and not torch.cuda.is_current_stream_capturing()):
+                dxu, lam = self._solve_exact_graphed(blocks, rho)
             else:
-                S, gam, invG, E, F = self.schur_blocks(blocks, rho)
+                dxu, lam = self._solve_exact(blocks, rho)
+            batch = rho.shape
+            return dxu, lam, SchurSolveStats(
+                torch.zeros(batch, dtype=torch.long, device=rho.device),
+                torch.ones(batch, dtype=torch.bool, device=rho.device))
+        S, gam, recover = self._assemble(blocks, rho)
+        if guess is not None and self._branch() == "condensed":
+            guess = guess[..., :self.nx]
         with spans.span("btridiag.solve"):
-            if use_pcg:
-                if self.use_kernel_pcg:
-                    solve = _fused_pcg_solver(self.N, S.bs, precond, pcg_tol,
-                                              pcg_max_iter, pcg_relative)
-                    g0 = torch.zeros_like(gam) if guess is None else guess
-                    lam, iters = solve(S, gam, g0)
-                    stats = SchurSolveStats(iters, iters < pcg_max_iter)
-                else:
-                    res = pcg(S, gam, preconditioner(S, precond), guess=guess,
-                              exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
-                              relative=pcg_relative,
-                              trace_residual=trace_residual)
-                    lam = res.x
-                    stats = SchurSolveStats(res.iters, res.converged,
-                                            nu_trace=res.nu_trace,
-                                            res_trace=res.res_trace)
+            if self.use_kernel_pcg:
+                solve = _fused_pcg_solver(self.N, S.bs, precond, pcg_tol,
+                                          pcg_max_iter, pcg_relative)
+                g0 = torch.zeros_like(gam) if guess is None else guess
+                lam, iters = solve(S, gam, g0)
+                stats = SchurSolveStats(iters, iters < pcg_max_iter)
             else:
-                if self.exact_schur in ("cr", "cr_refine"):
-                    lam = btd_cyclic_reduction(S, gam)
-                    if self.exact_schur == "cr_refine":
-                        lam = lam + btd_cyclic_reduction(
-                            S, gam - btd_matvec(S, lam))
-                else:
-                    lam = btd_block_thomas(S, gam)
-                batch = rho.shape
-                stats = SchurSolveStats(
-                    torch.zeros(batch, dtype=torch.long, device=rho.device),
-                    torch.ones(batch, dtype=torch.bool, device=rho.device))
+                res = pcg(S, gam, preconditioner(S, precond), guess=guess,
+                          exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
+                          relative=pcg_relative,
+                          trace_residual=trace_residual)
+                lam = res.x
+                stats = SchurSolveStats(res.iters, res.converged,
+                                        nu_trace=res.nu_trace,
+                                        res_trace=res.res_trace)
         with spans.span("KKTSystem.recover_dxu"):
-            if split:
-                dxu = self._recover_dxu_split(iGxx, iGuu, blocks, lam)
-            elif condensed:
-                dxu, lam = self._recover_condensed(blocks, caux, lam)
-            else:
-                dxu = self.recover_dxu(invG, E, F, blocks, lam)
+            dxu, lam = recover(lam)
         return dxu, lam, stats
 
     def solve_schur_sharded(self, blocks: KKTBlocks, rho, mesh, axis: str,
@@ -500,6 +617,45 @@ class KKTSystem:
             precond=precond, exit_tolerance=pcg_tol, max_iter=pcg_max_iter,
             relative=pcg_relative, exact=exact)
         return dxu, lam, SchurSolveStats(iters, converged)
+
+
+# The KKTBlocks fields each Schur assembly reads; rho is read besides.
+_GRAPH_FIELDS = {"split": ("H", "g", "A", "B", "defect"),
+                 "condensed": KKTBlocks._fields,
+                 "generic": KKTBlocks._fields}
+# keys of the exact solve's CUDA graphs kept per KKTSystem; a closed loop
+# uses one (its controller's batch), a check that replays sampled steps
+# another
+_GRAPH_KEYS = 8
+# the widest blocks whose batched LU can be captured: PyTorch factors
+# wider batched blocks with MAGMA, whose calls synchronize, which a
+# capture refuses (on an H100, torch 2.11: 16 x 16 captures, 17 x 17 does
+# not); a failed capture also leaves the CUDA generator unusable
+_GRAPH_LU_MAX = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """The side stream the exact solve's graphs are captured on, one per
+    device."""
+    return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _no_hand_kernels(site: str):
+    """Raise if a hand kernel was launched inside the block.  Wraps a
+    graph capture: a launch captured into a graph would run at every
+    replay with no ``launch/<kernel>`` count."""
+    def launches():
+        return {k: n for k, n in spans.snapshot()["counts"].items()
+                if k.startswith("launch/")}
+    before = launches()
+    yield
+    after = launches()
+    if after != before:
+        raise RuntimeError(
+            f"{site}: hand-kernel launches captured into a CUDA graph: "
+            f"{ {k: n - before.get(k, 0) for k, n in after.items()} }")
 
 
 @functools.lru_cache(maxsize=None)

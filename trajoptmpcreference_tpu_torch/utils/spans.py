@@ -15,6 +15,9 @@ and kernel launch counts, kept in memory until a caller takes a
   span ``sync/<site>``, so it leaves the self time of the span around it.
 * ``launched(kernel)``: counts one launch of a hand kernel under
   ``launch/<kernel>``, always.
+* ``graphed(site)``: counts one capture or replay of a CUDA graph under
+  ``graph/<site>``, always; while tracing is on it also times the call as
+  the child span ``graph/<site>``.
 
 ``enable(True)`` switches tracing on; ``reset()`` clears every total and
 count.  The spans are named after the layer call they time (the layers of
@@ -29,8 +32,16 @@ PERF.md section 3):
             KKTSystem.schur_blocks   the split, condensed or generic assembly
             btridiag.solve           cyclic reduction, Thomas or PCG
             KKTSystem.recover_dxu
+            graph/solve_schur.capture  the exact solve captured (CUDA)
+            graph/solve_schur.replay   the exact solve replayed (CUDA)
           SQPSolver.line_search
         sync/<site>             inside host_bool
+
+On CUDA tensors the exact Schur solve runs as one CUDA graph per shape
+(``KKTSystem.solve_schur``): a replayed call enters
+``graph/solve_schur.replay`` and none of ``KKTSystem.schur_blocks``,
+``btridiag.solve`` and ``KKTSystem.recover_dxu``, whose work the graph
+holds; those three are entered by eager calls and by a capture.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ _on = False
 _totals: Dict[str, List[int]] = {}       # name -> [calls, ns, self ns]
 _syncs: Dict[str, int] = {}              # site -> host reads
 _launches: Dict[str, int] = {}           # kernel -> launches
+_graphs: Dict[str, int] = {}             # site -> graph captures, replays
 _stack: List["_Span"] = []
 _step = 0                                # control steps traced so far
 _clock = time.perf_counter_ns
@@ -139,18 +151,32 @@ def launched(kernel: str) -> None:
     _launches[kernel] = _launches.get(kernel, 0) + 1
 
 
+def graphed(site: str):
+    """Count one call under ``graph/<site>`` (``solve_schur.capture``,
+    ``solve_schur.replay``); returns the span ``graph/<site>`` that times
+    it while tracing is on, the shared no-op ``OFF`` while it is off."""
+    _graphs[site] = _graphs.get(site, 0) + 1
+    if not _on:
+        return OFF
+    return _Span("graph/" + site)
+
+
 def count(key: str) -> int:
-    """The count under ``key`` (``launch/fd``, ``sync/sqp.round``, ...)."""
+    """The count under ``key`` (``launch/fd``, ``sync/sqp.round``,
+    ``graph/solve_schur.replay``, ...)."""
     kind, _, name = key.partition("/")
-    return {"launch": _launches, "sync": _syncs}[kind].get(name, 0)
+    return {"launch": _launches, "sync": _syncs,
+            "graph": _graphs}[kind].get(name, 0)
 
 
 def reset() -> None:
-    """Clear every span total and every count (launches included)."""
+    """Clear every span total and every count (launches and graph calls
+    included)."""
     global _step
     _totals.clear()
     _syncs.clear()
     _launches.clear()
+    _graphs.clear()
     _step = 0
 
 
@@ -160,4 +186,5 @@ def snapshot() -> dict:
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": own}
                       for name, (c, ns, own) in _totals.items()},
             "counts": {**{f"sync/{k}": n for k, n in _syncs.items()},
-                       **{f"launch/{k}": n for k, n in _launches.items()}}}
+                       **{f"launch/{k}": n for k, n in _launches.items()},
+                       **{f"graph/{k}": n for k, n in _graphs.items()}}}
