@@ -4,26 +4,79 @@ the plain reference (``benchmark/reference``), in float64.
 The reference cannot replay a whole closed loop: two loops part by
 rounding over many steps.  So it follows the program step by step: for
 each kept step it takes the program's state and warm start at that step
-(the step's inputs), solves the step itself and shifts its own plan and
-multipliers, and the program's outputs (shifted plan, shifted
-multipliers, applied control, next state) are judged against its.  The
-window's first step starts cold from the benchmark's own scenarios and
-takes nothing from the program; the steady steps are judged by the merit
-each solve gains from its starting plan, against the reference's gain
-from the same plan; the next state, by simulating the program's applied
-control.  The multiplier warm start enters no number: the configurations'
-exact Schur solves (cyclic reduction, block-Thomas, the condensed path)
-never read it, only the PCG path takes it as its first guess.
+(the step's inputs: plan and multipliers), solves the step itself by the
+configuration's own solver path and shifts its own plan and multipliers,
+and the program's outputs (shifted plan, shifted multipliers, applied
+control, next state) are judged against its.  The window's first step
+starts cold from the benchmark's own scenarios and takes nothing from the
+program; the steady steps are judged by the merit each solve gains from
+its starting plan, against the reference's gain from the same plan, and
+by their multipliers; the next state, by simulating the program's applied
+control.  The multiplier warm start is an input like the plan: the exact
+Schur solves (method S) never read it, the PCG path (method PCG-SS)
+starts its first SQP iteration's PCG from it, so a PCG cell's steady
+multipliers show whether the program took it.
+
+A scenario-step runs away when the state it starts from turns a joint
+at half the simulated joint speed limit or faster (``loop.RUNAWAY_QD``).
+There the float64 reference finds no step that lowers the merit, and a
+float32 solve, the program's or the reference's own, may raise a merit of
+up to 1e6 by a third: one such step outweighs the summed gains of the
+rest.  So the steady numbers (``steady_gain_deficit_tame``,
+``lam_steady_p75``) leave run-away steps out; they are judged by the next
+state and by finiteness.  The starting state is the same input for the
+program and the reference, so no answer moves itself out of the judged
+set; ``runaway_share``, the share of every scenario-step of the window
+that runs away, keeps a fault from hiding among run-aways.
+
+Every answer has to be finite: a kept scenario-step in which any output
+of the answer (plan, multipliers, applied control, next state) is not
+finite counts for ``nonfinite_share``, which every cell holds at 0
+(``REQUIRED``), whatever its limits file names.  A statistic over the
+steps cannot see them: a percentile passes a few infinite gaps, and a
+step fed a non-finite warm start leaves the reference as stuck as the
+program, so neither gains merit.
+
+The reference is the module that the configuration names under
+``"reference"`` (``sqp`` without the key), a file of
+``benchmark/reference/`` loaded by its path.  It provides:
+
+* ``Problem(config, dtype, device)`` with ``.arm.simulate(x, u)`` (the
+  simulated next state, joint speeds clamped to ``sim_qd_max``),
+  ``.cost(Xk, Uk, xg)`` and ``.violation(Xk, Uk, xs)`` (per scenario, on
+  knot-major plans (B, N, nx) and (B, N-1, nu)), and ``.N``, ``.nx``,
+  ``.nu``; the state is [q; qd], the joint speeds its second half;
+* ``mpc_step(prob, x, goals, knobs, X_init, U_init, lam_init, block)``:
+  one control step from the states x (B, nx), the goals (B, 6) and the
+  warm start (None for a cold step), returning ``X_plan``, ``U_plan``,
+  ``lam`` (shifted), ``u0`` and ``x1``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from benchlib.loop import Sample
+from benchlib import manifest
+from benchlib.loop import Sample, runaway
+
+# the numbers every cell compares, beside those its limits file names
+REQUIRED = {"nonfinite_share": 0.0}
+
+
+@functools.lru_cache(maxsize=None)
+def _load_reference(path):
+    return manifest.load_module(path, "reference_")
+
+
+def reference_module(config: dict, bench_dir=manifest.HERE):
+    """The reference module the configuration names (``sqp`` without the
+    ``reference`` key), loaded from ``<bench_dir>/reference/`` by path."""
+    return _load_reference(bench_dir / "reference"
+                           / f"{config.get('reference', 'sqp')}.py")
 
 
 def _max_abs(a, b):
@@ -35,8 +88,8 @@ def reference_answers(samples: List[Sample], config: dict, dtype, device,
     """The reference's own step from each sample's inputs, in ``dtype``
     (float64 for the reference, float32 for its control).  Samples of one
     phase (cold or steady) are solved together as one batch."""
-    from reference.sqp import Problem, mpc_step
-    prob = Problem(config, dtype, device)
+    ref = reference_module(config)
+    prob = ref.Problem(config, dtype, device)
     out = [None] * len(samples)
     for cold in (True, False):
         idx = [i for i, s in enumerate(samples) if s.cold == cold]
@@ -46,8 +99,8 @@ def reference_answers(samples: List[Sample], config: dict, dtype, device,
                             else torch.cat([getattr(samples[i], name)
                                             for i in idx]).to(dtype))
         knobs = config["cold_knobs"] if cold else config["knobs"]
-        r = mpc_step(prob, cat("x"), cat("goals"), knobs, cat("X_init"),
-                     cat("U_init"), block=block)
+        r = ref.mpc_step(prob, cat("x"), cat("goals"), knobs, cat("X_init"),
+                         cat("U_init"), cat("lam_init"), block=block)
         start = 0
         for i in idx:
             b = samples[i].x.shape[0]
@@ -59,15 +112,18 @@ def reference_answers(samples: List[Sample], config: dict, dtype, device,
 
 
 def gaps(samples: List[Sample], answers: List[dict], truth: List[dict],
-         config: dict) -> Dict[str, np.ndarray]:
+         config: dict, window_runaway: Optional[List[torch.Tensor]] = None
+         ) -> Dict[str, np.ndarray]:
     """Per scenario-step gaps of ``answers`` (the program's outputs, or
     the control's) to ``truth`` (the reference's).  The next state is
     held against the reference's simulation of the answer's own applied
-    control."""
-    from reference.arm import PlanarArm
-    arm = PlanarArm(config["robot"], config["dt"], config["sim_qd_max"])
-    from reference.sqp import Problem
-    prob = Problem(config, torch.float64, samples[0].x.device)
+    control.  ``nonfinite`` marks the scenario-steps in which an output of
+    the answer is not finite, ``runaway`` those that start from a run-away
+    state; ``runaway_window`` is the window's own run-away flags, every
+    scenario of every step (``Window.runaway``)."""
+    prob = reference_module(config).Problem(config, torch.float64,
+                                            samples[0].x.device)
+    arm = prob.arm
     mu = float(config["solver"]["merit_mu"])
 
     def plan_merit(s, X, U):
@@ -96,7 +152,7 @@ def gaps(samples: List[Sample], answers: List[dict], truth: List[dict],
         return plan_merit(s, X, U)
 
     cols = {k: [] for k in ("lam", "lam_scale", "x1", "cold", "merit_excess",
-                            "gain", "gain_ref")}
+                            "gain", "gain_ref", "nonfinite", "runaway")}
     for s, a, t in zip(samples, answers, truth):
         f = lambda v: v.double()
         m_t, m_a, m_0 = merit(s, t), merit(s, a), start_merit(s)
@@ -109,6 +165,12 @@ def gaps(samples: List[Sample], answers: List[dict], truth: List[dict],
                           .flatten(1).amax(1))
         cols["lam_scale"].append(f(t["lam"]).abs().flatten(1).amax(1))
         cols["cold"].append(torch.full_like(cols["x1"][-1], float(s.cold)))
+        finite = torch.stack([torch.isfinite(a[k]).flatten(1).all(1) for k in
+                              ("X_plan", "U_plan", "lam", "u0", "x1")]).all(0)
+        cols["nonfinite"].append((~finite).double())
+        cols["runaway"].append(runaway(s.x, config).double())
+    if window_runaway is not None:
+        cols["runaway_window"] = [t.double().flatten() for t in window_runaway]
     return {k: torch.cat(v).cpu().numpy() for k, v in cols.items()}
 
 
@@ -139,12 +201,30 @@ def _q(v, q):
     return float(np.quantile(v, q, method="higher"))
 
 
+def _rows(g, mask):
+    """The kept scenario-steps where ``mask`` holds."""
+    return {k: v[mask] for k, v in g.items() if k != "runaway_window"}
+
+
 def _cold(g):
-    return {k: v[g["cold"] > 0] for k, v in g.items()}
+    return _rows(g, g["cold"] > 0)
 
 
 def _steady(g):
-    return {k: v[g["cold"] == 0] for k, v in g.items()}
+    return _rows(g, g["cold"] == 0)
+
+
+def _tame(g):
+    return _rows(g, g["runaway"] == 0)
+
+
+def _lam_rel(g):
+    """The multipliers' gap relative to max(|lam_ref|, 1)."""
+    return g["lam"] / np.maximum(g["lam_scale"], 1.0)
+
+
+def _share(v):
+    return float(v.mean()) if v.size else float("nan")
 
 
 def _gain_deficit(g):
@@ -165,8 +245,7 @@ def _gain_deficit(g):
 NUMBERS = {
     # the window's first step, cold from the benchmark's own scenarios:
     # the multipliers' gap relative to max(|lam|, 1), 75th percentile
-    "lam_cold_p75": lambda g: _q(_cold(g)["lam"]
-                                 / np.maximum(_cold(g)["lam_scale"], 1.0), 0.75),
+    "lam_cold_p75": lambda g: _q(_lam_rel(_cold(g)), 0.75),
     # the same step's plan: its merit's excess over the reference's, median
     "merit_cold_p50": lambda g: _q(_cold(g)["merit_excess"], 0.5),
     # every kept step: the next state against the reference's simulation
@@ -177,10 +256,20 @@ NUMBERS = {
     # short ladder, the shifted warm start): the share of the reference's
     # merit gain, from the same starting plans, that the program lacks
     "steady_gain_deficit": lambda g: _gain_deficit(_steady(g)),
+    # the same over the steady steps that do not run away
+    "steady_gain_deficit_tame": lambda g: _gain_deficit(_tame(_steady(g))),
+    # the tame steady steps' multipliers, as in lam_cold_p75: where the
+    # solve starts from the warm start (PCG), a dropped warm start moves it
+    "lam_steady_p75": lambda g: _q(_lam_rel(_tame(_steady(g))), 0.75),
+    # the share of the window's scenario-steps that run away
+    "runaway_share": lambda g: _share(g.get("runaway_window", np.empty(0))),
+    # the share of kept scenario-steps with an output that is not finite
+    "nonfinite_share": lambda g: _share(g["nonfinite"]),
 }
 
 
 def judge(g: Dict[str, np.ndarray], limits: dict) -> Dict[str, dict]:
-    """Each number the cell's limits name, beside its limit."""
+    """Each number the cell's limits name, and each of ``REQUIRED``,
+    beside its limit."""
     return {name: {"value": NUMBERS[name](g), "limit": lim}
-            for name, lim in limits["numbers"].items()}
+            for name, lim in {**limits["numbers"], **REQUIRED}.items()}

@@ -10,7 +10,10 @@ would live and restores it after.
   alone (the solves that start from a carried plan); the cold first step
   of each episode solves as it should;
 * ``altered``: the next state of the batch's first scenario is moved by
-  0.01 where the control step hands it out.
+  0.01 where the control step hands it out;
+* ``nonfinite_lam``: the multipliers of an eighth of the batch (at least
+  one scenario) are NaN where the control step hands them out: too few
+  for a 75th percentile to see.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import contextlib
 
 import torch
 
-FAULTS = ("unchanged", "half", "steady_unchanged", "steady_half", "altered")
+FAULTS = ("unchanged", "half", "steady_unchanged", "steady_half", "altered",
+          "nonfinite_lam")
 
 
 @contextlib.contextmanager
@@ -36,6 +40,12 @@ def planted(name: str):
             X = res.X_applied.clone()
             X[0, 0, -1] += 0.01
             return res._replace(X_applied=X)
+    elif name == "nonfinite_lam":
+        def run(self, *a, **k):
+            res = orig_run(self, *a, **k)
+            lam = res.lam_last.clone()
+            lam[:max(1, lam.shape[0] // 8)] = float("nan")
+            return res._replace(lam_last=lam)
     else:
         steady_only = name.startswith("steady_")
         kind = name.removeprefix("steady_")

@@ -21,6 +21,17 @@ import torch
 
 from benchlib import traffic as T
 
+# a scenario-step runs away when the state it starts from turns a joint at
+# this share of the configuration's simulated joint speed limit or faster
+# (PERF.md gives the readings behind it)
+RUNAWAY_QD = 0.5
+
+
+def runaway(x: torch.Tensor, config: dict) -> torch.Tensor:
+    """Whether each state x (..., nx) = [q; qd] runs away."""
+    n = x.shape[-1] // 2
+    return x[..., n:].abs().amax(-1) >= RUNAWAY_QD * float(config["sim_qd_max"])
+
 
 @dataclasses.dataclass
 class Sample:
@@ -111,6 +122,7 @@ class Window:
         self.step_s: List[float] = []
         self.iters: List[torch.Tensor] = []
         self.bad: List[torch.Tensor] = []
+        self.runaway: List[torch.Tensor] = []  # per step, per scenario
         self.finals: List[tuple] = []         # (x0, goals, x_final) per episode
         self.reservoir: List[tuple] = []
         self.profile = None
@@ -156,8 +168,12 @@ class Window:
                 self.profile = _stop_profile(prof, spans)
                 prof = None
             self.iters.append(res.iters[..., 0])
-            self.bad.append(~(torch.isfinite(res.X_plan_last).flatten(1).all(1)
-                              & torch.isfinite(res.U_plan_last).flatten(1).all(1)))
+            # a scenario-step fails where its plan or multipliers are not
+            # finite
+            self.bad.append(~torch.stack([
+                torch.isfinite(t).flatten(1).all(1) for t in
+                (res.X_plan_last, res.U_plan_last, res.lam_last)]).all(0))
+            self.runaway.append(runaway(inputs["x"], loop.config))
             self._keep(g, res, inputs, loop)
             g += 1
             self.window_s = time.perf_counter() - t_start

@@ -4,9 +4,11 @@ reader of each per-layer metric.
 
 A later change adds a cell or a metric by adding files and entries:
 ``configs/<config>.json`` (named by the configuration's ``file``),
-``traffic/<traffic>.json``, ``limits/<cell>.json`` and
+``traffic/<traffic>.json``, ``limits/<cell>.json``,
 ``metrics/<metric>.py`` with a function ``read(run)`` that returns the
-metric's value, or None where the run holds nothing to read.
+metric's value, or None where the run holds nothing to read, and, where
+the configuration names one, its plain reference
+``reference/<module>.py`` (``benchlib.correct`` says what it provides).
 """
 
 from __future__ import annotations
@@ -66,14 +68,19 @@ class Cell:
         return load_reader(self.bench_dir / "metrics" / f"{metric_name}.py")
 
 
-def load_reader(path: pathlib.Path) -> Callable:
-    """The ``read`` function of one metric's file (its name may hold dots,
-    so it is loaded by path, not imported by name)."""
+def load_module(path: pathlib.Path, prefix: str):
+    """The Python file at ``path``, loaded by its path (its name may hold
+    dots, so it is not imported by name)."""
     spec = importlib.util.spec_from_file_location(
-        "metric_" + path.stem.replace(".", "_"), path)
+        prefix + path.stem.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(path: pathlib.Path) -> Callable:
+    """The ``read`` function of one metric's file."""
+    return load_module(path, "metric_").read
 
 
 def readers(cell: Cell) -> Dict[str, Callable]:

@@ -82,7 +82,7 @@ def main(argv=None) -> int:
                 with faults.planted(fault):
                     sides[f"fault_{fault}"] = replay(loop, samples)
         for side, ans in sides.items():
-            g = correct.gaps(samples, ans, truth, cfg)
+            g = correct.gaps(samples, ans, truth, cfg, win.runaway)
             nums = {k: f(g) for k, f in correct.NUMBERS.items()}
             # the harness's own verdict on this side, by the cell's limits
             checks = correct.judge(g, cell.limits)

@@ -8,8 +8,13 @@ the plan and the multipliers are shifted one knot for the next step.
 
 Each SQP iteration linearizes the problem at the current iterate, solves
 the KKT system of the Newton step by one dense Schur complement per
-scenario (the whole (N (nx + m))^2 matrix, no block structure exploited),
-tries the step lengths of the ladder on an L1 merit function and keeps the
+scenario (the whole (N (nx + m))^2 matrix, no block structure exploited)
+and the Schur system S lam = gam as the knobs' ``method`` says (``S``:
+exactly; ``PCG-SS``: ``pcg_iters`` iterations at most of PCG with the
+symmetric-stair preconditioner, relative tolerance ``pcg_tol``,
+``reference/pcg.py``, from the step's multiplier warm start in its first
+SQP iteration and from the last iteration's multipliers after), tries
+the step lengths of the ladder on an L1 merit function and keeps the
 first that passes; a scenario that has converged keeps its iterate.  The
 rules for acceptance, the regularization schedule and the exits are those
 of the configuration's ``solver`` section (the reference's own
@@ -25,9 +30,11 @@ import dataclasses
 
 import torch
 
+from reference import pcg
 from reference.arm import PlanarArm
 
 EXIT_TOL, EXIT_RHO_MAX, EXIT_MAX_ITER = 1, 2, 3
+METHODS = ("S", "PCG-SS")
 
 
 @dataclasses.dataclass
@@ -105,10 +112,12 @@ class Problem:
         return c
 
     # --------------------------------------------------------- the QP
-    def newton_step(self, Xk, Uk, xs, xg, rho):
+    def newton_step(self, Xk, Uk, xs, xg, rho, knobs, guess):
         """Gradient g (B, N, n) and the KKT solution (dxu (B, N, n), lam
         (B, N, nx + m)) at the iterate, the step being -dxu.  The terminal
-        knot carries phantom controls with a unit Hessian."""
+        knot carries phantom controls with a unit Hessian.  The Schur system
+        is solved exactly unless ``knobs`` name the method PCG-SS, whose
+        iteration starts from ``guess`` (B, N, nx + m)."""
         N, nx, nu, n, m = self.N, self.nx, self.nu, self.n, self.m
         Bsz = Xk.shape[0]
         dt, dev = Xk.dtype, Xk.device
@@ -158,16 +167,26 @@ class Problem:
                            Gi).reshape(Bsz, R, T)
         S = torch.diag_embed(Dg.reshape(Bsz, R)) - CGi @ C.transpose(-1, -2)
         gam = rhs.reshape(Bsz, R) - (CGi @ g.reshape(Bsz, T, 1))[..., 0]
-        lam = torch.linalg.solve(S, gam)
+        if knobs["method"] == "PCG-SS":
+            lam = pcg.solve(S, gam, guess.reshape(Bsz, R), N, bs,
+                            int(knobs["pcg_iters"]), float(knobs["pcg_tol"]))
+        else:
+            lam = torch.linalg.solve(S, gam)
         resid = g.reshape(Bsz, T) - (C.transpose(-1, -2) @ lam[..., None])[..., 0]
         dxu = (Gi @ resid.view(Bsz, N, n, 1))[..., 0]
         return g, dxu, lam.view(Bsz, N, bs)
 
     # ------------------------------------------------------------ SQP
-    def solve(self, X, U, xg, knobs: dict):
+    def solve(self, X, U, xg, knobs: dict, lam_init=None):
         """The SQP iterations of one control step from the plan (X, U)
-        (X's first knot is the current state).  Returns (X, U, lam,
-        iters)."""
+        (X's first knot is the current state) and the multipliers
+        ``lam_init`` (zero without).  Returns (X, U, lam, iters)."""
+        if knobs["method"] not in METHODS:
+            raise ValueError(f"the reference solves methods {METHODS}, not "
+                             f"{knobs['method']!r}")
+        if knobs["method"] != "S" and self.m:
+            raise ValueError("the reference's PCG takes no torque rows (the "
+                             "port's PCG solves their condensed system)")
         o = self.cfg["solver"]
         Xk, Uk = X.transpose(-1, -2), U.transpose(-1, -2)
         xs = Xk[..., 0, :].clone()
@@ -185,11 +204,12 @@ class Problem:
         drho = torch.ones_like(rho)
         it = torch.zeros(Bsz, dtype=torch.long, device=dev)
         done = torch.zeros(Bsz, dtype=torch.bool, device=dev)
-        lam = torch.zeros(Bsz, self.N, self.nx + self.m, dtype=dt, device=dev)
+        lam = (torch.zeros(Bsz, self.N, self.nx + self.m, dtype=dt, device=dev)
+               if lam_init is None else lam_init)
         max_iter = int(knobs["max_iter"])
         for _ in range(max_iter):
             hit_max = it == max_iter - 1
-            g, dxu, lam_new = self.newton_step(Xk, Uk, xs, xg, rho)
+            g, dxu, lam_new = self.newton_step(Xk, Uk, xs, xg, rho, knobs, lam)
             D = (g * dxu).sum((-1, -2))       # Armijo derivative at the base
             dX, dU = dxu[..., :self.nx], dxu[..., :-1, self.nx:]
             a = alphas[:, None, None, None]
@@ -244,10 +264,11 @@ def shift(X, U, lam):
 
 
 def mpc_step(prob: Problem, x, goals, knobs: dict, X_init=None, U_init=None,
-             block: int = 256) -> StepResult:
+             lam_init=None, block: int = 256) -> StepResult:
     """One control step for states x (B, nx) and goals (B, 6); without a
     plan the step starts cold (the state held over the horizon, zero
-    controls).  Scenarios go ``block`` at a time."""
+    controls), without ``lam_init`` (B, N, nx + m) from zero multipliers.
+    Scenarios go ``block`` at a time."""
     parts = []
     N, nu = prob.N, prob.nu
     for i in range(0, x.shape[0], block):
@@ -258,7 +279,8 @@ def mpc_step(prob: Problem, x, goals, knobs: dict, X_init=None, U_init=None,
         else:
             Xp, Up = X_init[i:i + block].clone(), U_init[i:i + block]
             Xp[..., 0] = xb
-        X, U, lam, iters = prob.solve(Xp, Up, gb[:, None, :], knobs)
+        lb = None if lam_init is None else lam_init[i:i + block]
+        X, U, lam, iters = prob.solve(Xp, Up, gb[:, None, :], knobs, lb)
         u0 = U[..., 0]
         Xs, Us, lams = shift(X, U, lam)
         parts.append(StepResult(Xs, Us, lams, u0,

@@ -222,7 +222,8 @@ def measure(cell, args, device) -> int:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     truth = correct.reference_answers(samples, cfg, torch.float64, device)
-    g = correct.gaps(samples, correct.program_answers(samples), truth, cfg)
+    g = correct.gaps(samples, correct.program_answers(samples), truth, cfg,
+                     win.runaway)
     checks = correct.judge(g, cell.limits)
     ok = all(v["value"] <= v["limit"] for v in checks.values())
     log(f"[check] {len(samples)} steps, {g['x1'].size} scenario-steps "

@@ -144,3 +144,117 @@ def test_gain_deficit_is_the_reference_gain_lacking():
     assert correct._gain_deficit(dict(g, gain=np.array([4.0, 2.0, 0.0, np.nan]))
                                  ) == np.inf
     assert np.isnan(correct._gain_deficit(dict(g, gain_ref=np.zeros(4))))
+
+
+
+def test_lam_steady_p75_is_over_the_steady_steps():
+    # relative gaps 0.1 / 1, 0.2 / 2, 0.4 / 1 of the tame steady steps (the
+    # first step is cold, the last runs away); the 75th percentile (the
+    # higher value) is 0.4
+    g = {"cold": np.array([1.0, 0, 0, 0, 0]),
+         "runaway": np.array([0.0, 0, 0, 0, 1]),
+         "lam": np.array([9.0, 0.1, 0.2, 0.4, 50.0]),
+         "lam_scale": np.array([1.0, 0.5, 2.0, 1.0, 1.0])}
+    assert correct.NUMBERS["lam_steady_p75"](g) == pytest.approx(0.4)
+    g["lam"][2] = np.nan
+    assert correct.NUMBERS["lam_steady_p75"](g) == np.inf
+
+
+@pytest.mark.parametrize("qd, runs_away", [(0.0, False), (104.0, False),
+                                           (104.72, True), (-150.0, True),
+                                           (209.44, True)])
+def test_a_step_runs_away_from_half_the_joint_speed_limit(qd, runs_away):
+    """The state's fastest joint against half of sim_qd_max (209.44 rad/s):
+    joint angles never count, and either sign does."""
+    import torch
+
+    from benchlib import loop
+    cfg = json.loads((BENCH / "configs" / "arm6_s.json").read_text())
+    x = np.zeros((2, 12))
+    x[0, 4] = 1000.0                      # an angle, not a speed
+    x[1, 9] = qd
+    got = loop.runaway(torch.as_tensor(x), cfg).tolist()
+    assert got == [False, runs_away]
+
+
+def test_steady_gain_deficit_tame_leaves_run_away_steps_out():
+    """A steady step that runs away with a merit loss of 4e5 (as a float32
+    solve can have at the joint speed limit) swamps the plain deficit; the
+    tame one reads the other steps alone, as the plain one did without it."""
+    g = {"cold": np.array([1.0, 0, 0, 0]),
+         "runaway": np.array([0.0, 0, 0, 1]),
+         "gain": np.array([50.0, 4.0, 3.0, -4e5]),
+         "gain_ref": np.array([60.0, 5.0, 3.0, 0.0])}
+    tame = correct.NUMBERS["steady_gain_deficit_tame"](g)
+    assert tame == pytest.approx(1 - 7 / 8)
+    assert correct.NUMBERS["steady_gain_deficit"](g) > 1e4
+    assert tame == correct.NUMBERS["steady_gain_deficit"](
+        {k: v[:3] for k, v in g.items()})
+    # every steady step running away leaves nothing to judge: not a pass
+    g["runaway"][:] = 1
+    assert np.isnan(correct.NUMBERS["steady_gain_deficit_tame"](g))
+
+
+def test_runaway_share_is_over_every_step_of_the_window():
+    """The window's flags, not the kept sample's: a run-away step that the
+    sample missed counts, and a check without the window's flags has no
+    reading, which fails any limit."""
+    g = {"cold": np.array([1.0, 0]), "runaway": np.array([0.0, 0]),
+         "nonfinite": np.array([0.0, 0]),
+         "runaway_window": np.array([0.0, 0, 1, 0, 0, 0, 0, 1])}
+    assert correct.NUMBERS["runaway_share"](g) == pytest.approx(0.25)
+    # the per-step statistics ignore the window's flags
+    steady = correct._steady(g)
+    assert sorted(steady) == ["cold", "nonfinite", "runaway"]
+    assert steady["cold"].tolist() == [0.0]
+    del g["runaway_window"]
+    assert np.isnan(correct.NUMBERS["runaway_share"](g))
+    checks = correct.judge(g, {"numbers": {"runaway_share": 0.005}})
+    assert not checks["runaway_share"]["value"] <= 0.005
+
+
+def test_gaps_marks_run_away_steps_and_keeps_the_window_flags():
+    import torch
+    cfg, s, truth = _sample_and_answer()
+    s.x[1, 7] = 0.6 * cfg["sim_qd_max"]
+    flags = [torch.tensor([False, True]), torch.tensor([False, False])]
+    g = correct.gaps([s], [truth], [truth], cfg, flags)
+    assert g["runaway"].tolist() == [0.0, 1.0, 0.0]
+    assert g["runaway_window"].tolist() == [0.0, 1.0, 0.0, 0.0]
+    assert "runaway_window" not in correct.gaps([s], [truth], [truth], cfg)
+
+
+def _sample_and_answer(b=3):
+    import torch
+
+    from benchlib.loop import Sample
+    cfg = json.loads((BENCH / "configs" / "arm6_s.json").read_text())
+    N, nx, nu = cfg["horizon"], 12, 6
+    z = lambda *s: torch.zeros(*s, dtype=torch.float64)
+    ans = dict(X_plan=z(b, nx, N), U_plan=z(b, nu, N - 1), lam=z(b, N, nx),
+               u0=z(b, nu), x1=z(b, nx))
+    s = Sample(0, 5, False, torch.arange(b), z(b, nx), z(b, 6), z(b, nx, N),
+               z(b, nu, N - 1), z(b, N, nx), None, **ans)
+    return cfg, s, ans
+
+
+@pytest.mark.parametrize("output", ["X_plan", "U_plan", "lam", "u0", "x1"])
+def test_a_nonfinite_output_counts_for_nonfinite_share(output):
+    """One scenario of three with one element of one output not finite:
+    that scenario-step alone is marked, and the check fails it although
+    the cell's limits file does not name the number."""
+    cfg, s, truth = _sample_and_answer()
+    ans = dict(truth)
+    ans[output] = truth[output].clone()
+    ans[output].view(3, -1)[1, -1] = float("inf" if output == "lam" else "nan")
+    g = correct.gaps([s], [ans], [truth], cfg)
+    assert g["nonfinite"].tolist() == [0.0, 1.0, 0.0]
+    assert correct.NUMBERS["nonfinite_share"](g) == pytest.approx(1 / 3)
+    checks = correct.judge(g, {"numbers": {}})
+    assert checks == {"nonfinite_share": {"value": pytest.approx(1 / 3),
+                                          "limit": 0.0}}
+    # a limits file cannot loosen it
+    loose = correct.judge(g, {"numbers": {"nonfinite_share": 1.0}})
+    assert loose["nonfinite_share"]["limit"] == 0.0
+    assert correct.NUMBERS["nonfinite_share"](
+        correct.gaps([s], [truth], [truth], cfg)) == 0.0

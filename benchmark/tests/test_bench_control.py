@@ -34,7 +34,8 @@ def test_control_fails_where_the_program_passes(card, cell_name):
     truth = correct.reference_answers(samples, cell.config, torch.float64,
                                       card)
     judge = lambda ans: correct.judge(
-        correct.gaps(samples, ans, truth, cell.config), cell.limits)
+        correct.gaps(samples, ans, truth, cell.config, win.runaway),
+        cell.limits)
     program = judge(correct.program_answers(samples))
     control = judge(correct.control_answers(samples, cell.config, card))
     assert all(v["value"] <= v["limit"] for v in program.values()), program

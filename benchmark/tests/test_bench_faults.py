@@ -77,3 +77,18 @@ def test_a_planted_fault_is_not_correct(tmp_path, cell_name, fault):
     with faults.planted(fault):
         result = run_once(cell)
     assert result["correct"] is False, result["checks"]
+
+
+def test_nonfinite_multipliers_fail_the_check_and_count_as_failed(tmp_path):
+    """NaN multipliers in an eighth of the batch: too few for any
+    percentile, so ``nonfinite_share`` alone fails them, and each such
+    scenario-step counts in ``failed``."""
+    cell = tiny_cell(tmp_path, "arm6_s.b512")
+    with faults.planted("nonfinite_lam"):
+        result = run_once(cell)
+    checks = result["checks"]
+    assert result["correct"] is False
+    assert result["failed"] == result["attempted"] // 8
+    assert checks["nonfinite_share"]["value"] == pytest.approx(1 / 8)
+    assert all(v["value"] <= v["limit"] for k, v in checks.items()
+               if k != "nonfinite_share"), checks

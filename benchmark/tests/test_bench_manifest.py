@@ -100,3 +100,23 @@ def test_each_seed_and_episode_draws_its_own_scenarios():
         assert abs(x.std() - 0.1) < 0.01
         assert abs(g[:, :2].mean(0) - [3.0, 2.0]).max() < 0.1
         assert (g[:, 2:] == 0).all()
+
+
+def test_a_configuration_names_its_reference_module(tmp_path):
+    """A configuration's ``reference`` names a file of the benchmark's
+    ``reference/``, loaded by path; without the key it is ``sqp``."""
+    from benchlib import correct
+    (tmp_path / "reference").mkdir()
+    (tmp_path / "reference" / "other_robot.py").write_text(
+        "NAME = 'other_robot'\n")
+    cfg = load_json(BENCH / "configs" / "arm6_pcg.json")
+    assert "reference" not in cfg
+    sqp = correct.reference_module(cfg)
+    assert pathlib.Path(sqp.__file__) == BENCH / "reference" / "sqp.py"
+    assert callable(sqp.mpc_step) and callable(sqp.Problem)
+    assert correct.reference_module(dict(cfg, reference="sqp")) is sqp
+    mod = correct.reference_module(dict(cfg, reference="other_robot"),
+                                   bench_dir=tmp_path)
+    assert mod.NAME == "other_robot"
+    with pytest.raises(FileNotFoundError):
+        correct.reference_module(dict(cfg, reference="absent"))

@@ -10,7 +10,7 @@ import pytest
 BENCH = pathlib.Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("config", ["arm6_s", "arm6_as"])
+@pytest.mark.parametrize("config", ["arm6_s", "arm6_as", "arm6_pcg"])
 def test_frozen_counts_equal_the_counter(config):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build kernels/needed_ops.cpp")
@@ -25,7 +25,7 @@ def test_frozen_counts_equal_the_counter(config):
         assert opcount.count_needed(lib, packed, 6) == c["ops_per_lane"], lib
 
 
-@pytest.mark.parametrize("config", ["arm6_s", "arm6_as"])
+@pytest.mark.parametrize("config", ["arm6_s", "arm6_as", "arm6_pcg"])
 def test_frozen_bytes_are_inputs_read_once_and_outputs_written_once(config):
     """f32, n = 6: K1 reads q, qd, u and writes (n, 3n); K2 writes qdd; K3
     reads q, qd and writes 2k = 6 values."""
