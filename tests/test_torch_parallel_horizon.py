@@ -14,6 +14,9 @@ the batched CPU kernels are not bitwise batch-invariant); the SPIKE exact
 solve at 1e-9 (f64) and 5e-5 (f32) of JAX's btd_block_thomas
 (tests/test_parallel.py:228, :262).  Replicated results are bit-equal on
 every rank, and the all-gather into one tensor equals the list form.
+PCG-SS from a warm start (f32, relative exit) at 1e-5 of btridiag.pcg's
+on the whole system, and the zero start's bit for bit where the rule
+drops the guess.
 """
 
 import jax
@@ -137,6 +140,24 @@ def test_sharded_pcg_matches_dense_and_jax(ranks, inputs, jax_sharded, pre):
                                   iters)
     np.testing.assert_allclose(_replicated(results, f"pcg_{pre}_alone"), x,
                                rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("tag", ["kept", "dropped"])
+def test_sharded_pcg_starts_as_btridiag_pcg(ranks, tag):
+    """float32 PCG-SS to a relative 1e-6 on the systems times 1e20: from a
+    guess the rule keeps, whose residual puts nu past float32's range
+    unscaled, a finite answer within 1e-5 of max|x| of btridiag.pcg's on
+    the whole system, in iterations within 1 of its; from a guess far
+    worse than none, the zero start's answer bit for bit."""
+    P, results = ranks
+    x = _replicated(results, f"warm_{tag}")
+    one = results[0][f"warm_{tag}_one"]
+    assert np.isfinite(x).all()
+    assert np.abs(x - one).max() <= 1e-5 * np.abs(one).max()
+    iters = _replicated(results, f"warm_{tag}_iters")
+    assert np.abs(iters - results[0][f"warm_{tag}_one_iters"]).max() <= 1
+    if tag == "dropped":
+        np.testing.assert_array_equal(x, _replicated(results, "warm_none"))
 
 
 @pytest.mark.parametrize("tag,dtype,tol", [("f64", jnp.float64, 1e-9),

@@ -39,8 +39,10 @@ def spawn(case, P, d, inputs, timeout=900):
 
 def _horizon(rank, P, inp):
     """Every horizon-sharded operator on the random SPD systems: matvec,
-    PCG for each preconditioner (batched, and each scenario alone), the
-    SPIKE exact solve in f64 and f32, and the two all-gather forms."""
+    PCG for each preconditioner (batched, and each scenario alone), PCG-SS
+    from warm starts that the rule keeps and drops (and btridiag.pcg on
+    the whole system), the SPIKE exact solve in f64 and f32, and the two
+    all-gather forms."""
     from trajoptmpcreference_tpu_torch.ops.btridiag import BlockTridiag
     from trajoptmpcreference_tpu_torch.parallel import (
         make_mesh,
@@ -84,6 +86,39 @@ def _horizon(rank, P, inp):
         out[f"pcg_{pre}_alone"] = np.concatenate([gather(r.x) for r in alone])
         out[f"pcg_{pre}_alone_iters"] = np.concatenate(
             [r.iters.numpy() for r in alone])
+
+    # the warm start, float32, SS, relative exit: a guess of the solution
+    # times 1e20 with a 1e-1 relative error, which the rule keeps and whose
+    # residual, unscaled, puts nu past float32's range; and one far worse
+    # than none, which it drops
+    from trajoptmpcreference_tpu_torch.ops.btridiag import (
+        btd_matvec,
+        pcg,
+        preconditioner,
+    )
+    f32 = torch.float32
+    A64 = BlockTridiag(torch.tensor(inp["diag"]), torch.tensor(inp["upper"]))
+    xs = torch.tensor(inp["x"])
+    noise = torch.randn(xs.shape, generator=torch.Generator().manual_seed(9),
+                        dtype=f64)
+    b = 1e20 * btd_matvec(A64, xs)
+    kw = dict(precond="SS", exit_tolerance=1e-6, max_iter=200, relative=True)
+    A, bl = local(inp["diag"], inp["upper"], b.numpy(), f32)
+    L = bl.shape[1]
+    cut = lambda t: t.to(f32)[:, rank * L:(rank + 1) * L]
+    for tag, guess in (("kept", 1e20 * xs * (1 + 0.1 * noise)),
+                       ("dropped", 1e30 * (xs + 1.0))):
+        res = sharded_pcg(A, bl, group, guess=cut(guess), **kw)
+        out[f"warm_{tag}"] = gather(res.x)
+        out[f"warm_{tag}_iters"] = res.iters.numpy()
+        A32 = BlockTridiag(A64.diag.to(f32), A64.upper.to(f32))
+        one = pcg(A32, b.to(f32), preconditioner(A32, "SS"),
+                  guess=guess.to(f32), exit_tolerance=1e-6, max_iter=200,
+                  relative=True)
+        out[f"warm_{tag}_one"] = one.x.numpy()
+        out[f"warm_{tag}_one_iters"] = one.iters.numpy()
+    res = sharded_pcg(A, bl, group, **kw)
+    out["warm_none"] = gather(res.x)
 
     for tag, dtype in (("f64", f64), ("f32", torch.float32)):
         A, b = local(inp["exact_diag"], inp["exact_upper"], inp["exact_b"],

@@ -17,8 +17,10 @@ and a summary to standard output:
 * ``host``: ``per_step`` of the host-timed steps' snapshot: host
   milliseconds per step by layer, host reads per step by site, the exact
   Schur solve's graph captures and replays per step and the share of its
-  calls replayed, and the share of ``MPCController.run`` that the spans'
-  self times account for.  A replayed ``KKTSystem.solve_schur`` enters
+  calls replayed, K4's calls per step (``fused_pcg.launch``) and its
+  iterations per scenario per call (the device totals ``pcg/iters`` over
+  ``pcg/scenarios``, on the PCG route alone), and the share of
+  ``MPCController.run`` that the spans' self times account for.  A replayed ``KKTSystem.solve_schur`` enters
   ``graph/solve_schur.replay`` and not its three parts (assembly, solve,
   recovery): their times and calls count the eager calls and captures
   alone;
@@ -59,7 +61,9 @@ LAYERS = {"kkt": "KKTSystem.form_blocks", "linsolve": "KKTSystem.solve_schur",
           "linesearch": "SQPSolver.line_search"}
 LINSOLVE_PARTS = ("KKTSystem.schur_blocks", "btridiag.solve",
                   "KKTSystem.recover_dxu")
-CELLS = ("arm6_s.b1", "arm6_s.b512", "arm6_as.b512", "arm6_s.b4096")
+K4_SPAN = "fused_pcg.launch"        # inside btridiag.solve, PCG route
+CELLS = ("arm6_s.b1", "arm6_s.b512", "arm6_as.b512", "arm6_s.b4096",
+         "arm6_pcg.b512")
 
 
 def per_step(snap: dict):
@@ -80,6 +84,8 @@ def per_step(snap: dict):
     graphs = {n: s["calls"] / steps for n, s in sp.items()
               if n.startswith("graph/")}
     solves = sp.get(LAYERS["linsolve"], {}).get("calls", 0)
+    counts = snap.get("counts", {})
+    pcg_scenarios = counts.get("pcg/scenarios", 0)
     return {
         "steps": steps,
         "step_ms": ms("MPCController.run"),
@@ -101,6 +107,9 @@ def per_step(snap: dict):
         "linsolve.graph_hit_pct": (
             100 * sp.get("graph/solve_schur.replay", {}).get("calls", 0)
             / solves if solves else None),
+        "pcg.calls_per_step": sp.get(K4_SPAN, {}).get("calls", 0) / steps,
+        "pcg.iters_per_call": (counts.get("pcg/iters", 0) / pcg_scenarios
+                               if pcg_scenarios else None),
         "syncs_by_site": syncs,
         "sync_wait_ms_by_site": {n: ms(n) for n in sp if n.startswith("sync/")},
         "accounted_pct": 100 * sum(s["self_ns"] for s in sp.values())
@@ -370,6 +379,10 @@ def measure_cell(name, args, card, device, pauses, emit):
           f"{json.dumps({k: round(v, 3) for k, v in h['linsolve_parts_ms'].items()})}, "
           f"calls a step {json.dumps(h['linsolve_parts_calls_per_step'])}",
           flush=True)
+    if h["pcg.iters_per_call"] is not None:
+        print(f"[{name}] K4 {h['pcg.calls_per_step']:.2f} calls a step, "
+              f"{h['pcg.iters_per_call']:.3f} iterations per scenario per "
+              f"call", flush=True)
     for label, e in profiled.items():
         print(f"[{name}] profiled ({label}): idle "
               f"{e.get('idle_pct', float('nan')):.2f}%, device ms by "

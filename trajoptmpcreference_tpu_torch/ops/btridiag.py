@@ -11,7 +11,11 @@ block cyclic reduction (log2(N) levels of batched block ops) or by
 block-Thomas (a sequential loop over N), or iteratively by ``pcg`` with the
 reference's preconditioners ('0', 'J', 'BJ', 'SS'; ref: PCG.py:168-212).
 ``pcg`` is the counterpart of the JAX package's XLA PCG path; the fused
-one-kernel PCG (K4) is ops/fused_pcg.py.  Small block inverses go through
+one-kernel PCG (K4) is ops/fused_pcg.py.  Both start the same way
+(``warm_start``, ``residual_scale``): a warm start whose initial residual
+is far worse than a zero start's is dropped, and under the relative exit
+a large initial residual is scaled by a power of two so that the float32
+dot products stay in range.  Small block inverses go through
 batched ``torch.linalg.solve_ex`` (LU with partial pivoting, no host sync),
 the counterpart of the JAX package's CPU path; its TPU Gauss-Jordan branch
 is not needed.
@@ -243,6 +247,71 @@ def _dot(a, b):
     return (a * b).sum((-1, -2))
 
 
+# Under the relative exit a scenario's PCG runs on its initial residual r0
+# times a power of two c: nu = r' Pinv r, pAp and the exit threshold all
+# scale by c^2, so alpha, beta and the exit test are unchanged and every
+# iterate is the unscaled one times c, bit for bit, wherever that stays
+# finite and normal.  c = 1 while max|r0| <= 2**R0_LOG2_MAX, which holds
+# for every ordinary input; past it, nu (N bs products of r and Pinv r)
+# would near float32's 2**128 once the preconditioner's gain is added, so
+# c brings max|r0| into [1/2, 1).  Only ever down: in the scaled units
+# |nu_0| is then far above the relative exit's 1e-30 floor.  An absolute
+# exit is not scale-invariant, so it runs unscaled.
+R0_LOG2_MAX = 32
+
+
+def pow2_scale(m: torch.Tensor) -> torch.Tensor:
+    """The power of two c for a residual of max|r| = m: 1 where m <=
+    2**R0_LOG2_MAX (or is not finite), else 2**-e with m = f 2**e, f in
+    [1/2, 1).  Exact (f / m), with no host read."""
+    f, _ = torch.frexp(m)
+    big = (m > 2.0 ** R0_LOG2_MAX) & (m <= torch.finfo(m.dtype).max)
+    return torch.where(big, f / m, 1.0)
+
+
+def residual_scale(r: torch.Tensor) -> torch.Tensor:
+    """``pow2_scale`` of each scenario's max|r| over r's (N, bs) axes."""
+    return pow2_scale(r.abs().amax((-1, -2)))
+
+
+# A warm start whose |nu_0| passes this many times a zero start's is
+# dropped (``warm_start``).  In the PCG-SS flagship's float64 closed loop
+# (B = 512, two episodes) the carried multipliers' ratio reached 2.8e10
+# (~2**35) where they stayed under 1e6, and passed 2**40 only where they
+# had grown (to 3.9e8); a float32 PCG on a Schur system that float32 makes
+# indefinite can return multipliers whose ratio then grows ~1e3-1e6 times
+# a step, past float32's range within ten to twenty steps.
+WARM_START_NU_RATIO_MAX = 2.0 ** 40
+
+
+def warm_start(b: torch.Tensor, guess: torch.Tensor, matvec, apply_P,
+               dot=_dot, allmax=lambda m: m):
+    """Where a warm-started PCG on A x = b starts, per scenario: from
+    ``guess``, unless the guess gives an |nu_0| = |r0' Pinv r0| (r0 = b -
+    A guess) more than ``WARM_START_NU_RATIO_MAX`` times a zero start's
+    (|b' Pinv b|); then from zero.  ``matvec`` applies A to (..., N, bs),
+    ``apply_P`` Pinv to the pair (2, ..., N, bs) of both starts' residuals,
+    ``dot`` is the per-scenario inner product and ``allmax`` completes a
+    per-scenario max (a horizon shard's: over the ranks).  The two are
+    compared in units scaled by the smaller of their ``pow2_scale``, so
+    that neither overflows.  Returns (x0, r0 = b - A x0, c =
+    ``residual_scale(r0)``).
+
+    A departure from the reference's upstream and from the JAX package,
+    which start from any guess: it leaves the guesses of multipliers that
+    stay in their usual range alone, and keeps a carried warm start that a
+    float32 solve has blown up from growing on until it overflows."""
+    r = b - matvec(guess)
+    both = torch.stack([r, b])
+    c = pow2_scale(allmax(both.abs().amax((-1, -2))))
+    scaled = both * c.amin(0)[..., None, None]
+    nu = dot(scaled, apply_P(scaled)).abs()
+    zero = nu[0] > WARM_START_NU_RATIO_MAX * nu[1]
+    keep = ~zero[..., None, None]
+    return (torch.where(keep, guess, torch.zeros_like(guess)),
+            torch.where(keep, r, b), torch.where(zero, c[1], c[0]))
+
+
 def pcg(A: BlockTridiag, b: torch.Tensor, Pinv: BlockTridiag,
         guess: Optional[torch.Tensor] = None,
         exit_tolerance: float = 1e-6, max_iter: int = 100,
@@ -257,19 +326,33 @@ def pcg(A: BlockTridiag, b: torch.Tensor, Pinv: BlockTridiag,
     vmap), so its result does not depend on its batchmates.  The loop runs
     to ``max_iter`` with masks and ends early on one host check per
     iteration once every scenario is done.  ``trace_residual`` also records
-    the true residual |b - A x| per iteration (one extra matvec)."""
-    x = torch.zeros_like(b) if guess is None else guess
-    r = b - btd_matvec(A, x)
+    the true residual |b - A x| per iteration (one extra matvec).
+
+    A guess is taken as ``warm_start`` says (dropped where it is far worse
+    than none).  Under the relative exit the iteration runs on the system
+    scaled by ``residual_scale`` of its initial residual (x, b and r times
+    c, exactly; the traces and the result in the system's own units)."""
+    if guess is None:
+        x = torch.zeros_like(b)
+        r = b - btd_matvec(A, x)
+        cs = residual_scale(r)
+    else:
+        x, r, cs = warm_start(b, guess, lambda v: btd_matvec(A, v),
+                              lambda v: btd_matvec(Pinv, v))
+    if not relative:
+        cs = torch.ones_like(cs)
+    c = cs[..., None, None]
+    x, r, b = x * c, r * c, b * c
     rt = btd_matvec(Pinv, r)
     p = rt
     nu = _dot(r, rt)
     lead = nu.shape
     trace = b.new_zeros(lead + (max_iter + 1,))
-    trace[..., 0] = nu.abs()
+    trace[..., 0] = nu.abs() / cs / cs
     rtrace = None
     if trace_residual:
         rtrace = b.new_zeros(lead + (max_iter + 1,))
-        rtrace[..., 0] = torch.linalg.vector_norm(r, dim=(-1, -2))
+        rtrace[..., 0] = torch.linalg.vector_norm(r, dim=(-1, -2)) / cs
     thr = (exit_tolerance * nu.abs() if relative
            else torch.full_like(nu, exit_tolerance))
     if relative:
@@ -292,12 +375,14 @@ def pcg(A: BlockTridiag, b: torch.Tensor, Pinv: BlockTridiag,
         x = torch.where(keep, x, x_new)
         r = torch.where(keep, r, r_new)
         p = torch.where(keep, p, p_new)
-        trace[..., k + 1] = torch.where(done, trace[..., k + 1], nu_new.abs())
+        trace[..., k + 1] = torch.where(done, trace[..., k + 1],
+                                        nu_new.abs() / cs / cs)
         if trace_residual:
             true_r = torch.linalg.vector_norm(b - btd_matvec(A, x), dim=(-1, -2))
-            rtrace[..., k + 1] = torch.where(done, rtrace[..., k + 1], true_r)
+            rtrace[..., k + 1] = torch.where(done, rtrace[..., k + 1],
+                                             true_r / cs)
         nu = torch.where(done, nu, nu_new)
         it = torch.where(done, it, it + 1)
         done = done | (nu_new.abs() <= thr)
-    return PCGResult(x=x, iters=it, nu_trace=trace, converged=done,
+    return PCGResult(x=x / c, iters=it, nu_trace=trace, converged=done,
                      res_trace=rtrace)

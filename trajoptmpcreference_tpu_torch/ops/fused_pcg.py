@@ -32,12 +32,18 @@ so the two agree to rounding.  It differs from ``btridiag.pcg`` with a full
 
 Iteration counts: the TPU kernel reports its 128-lane tile's count for
 every lane; K4 and its plain version report each scenario's own count
-(the meaning of ``btridiag.pcg``).
+(the meaning of ``btridiag.pcg``).  ``make_batched_pcg`` adds them up on
+the device, as the always-on totals ``pcg/iters`` and ``pcg/scenarios`` of
+``utils.spans``, and starts each solve as ``btridiag.pcg`` does: a warm
+start far worse than none is dropped (``btridiag.warm_start``), and under
+the relative exit K4 solves against the initial residual scaled by
+``btridiag.residual_scale``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -49,6 +55,7 @@ from trajoptmpcreference_tpu_torch.ops.btridiag import (
     _dot,
     _inv_blocks,
     btd_matvec,
+    warm_start,
 )
 from trajoptmpcreference_tpu_torch.ops.lanes import SMEM_LIMIT, on_card
 from trajoptmpcreference_tpu_torch.utils import spans
@@ -62,6 +69,16 @@ def _tri_indices(bs: int):
     rows, cols = np.tril_indices(bs)
     pos = {(int(i), int(j)): k for k, (i, j) in enumerate(zip(rows, cols))}
     return rows, cols, pos
+
+
+@functools.lru_cache(maxsize=None)
+def _tri_index_tensors(bs: int, device: torch.device):
+    """``_tri_indices``' row and column indices as index tensors on
+    ``device``, made once: host arrays as indices are copied to the device,
+    waiting for it, on every call."""
+    rows, cols, _ = _tri_indices(bs)
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(cols, device=device))
 
 
 def _pack_sym(blocks, rows, cols):
@@ -157,6 +174,22 @@ def storage_code(dtype: torch.dtype, operands: torch.dtype) -> int:
     return STORAGE[dtype]
 
 
+def _off(U, v):
+    """U_k v_{k+1} + U_{k-1}^T v_{k-1}: the off-diagonal blocks of S (U
+    (..., N-1, bs, bs)) times v (..., N, bs)."""
+    y = torch.zeros_like(v)
+    y[..., :-1, :] += _bmv(U, v[..., 1:, :])
+    y[..., 1:, :] += _bmv_T(U, v[..., :-1, :])
+    return y
+
+
+def _apply_P(P, U, r, ss: bool):
+    """s = P r with P the block-diagonal inverse, less for SS
+    P (U s_{k+1} + U^T s_{k-1})."""
+    s = _bmv(P, r)
+    return s - _bmv(P, _off(U, s)) if ss else s
+
+
 def pcg_fused_plain(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
                     max_iter: int, relative: bool):
     """Plain version of K4 (pallas_pcg.py:123-206): solves S dx = r0 from
@@ -178,19 +211,11 @@ def pcg_fused_plain(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
     P = _unpack_sym(pdiag_p.to(r0.dtype), bs)
     U = upper[:, :-1]
 
-    def off(v):
-        """U_k v_{k+1} + U_{k-1}^T v_{k-1}: the off-diagonal blocks of S."""
-        y = torch.zeros_like(v)
-        y[:, :-1] += _bmv(U, v[:, 1:])
-        y[:, 1:] += _bmv_T(U, v[:, :-1])
-        return y
-
     def matvec(v):
-        return _bmv(D, v) + off(v)
+        return _bmv(D, v) + _off(U, v)
 
     def apply_P(r):
-        s = _bmv(P, r)
-        return s - _bmv(P, off(s)) if ss else s
+        return _apply_P(P, U, r, ss)
 
     x = torch.zeros_like(r0)
     r = r0
@@ -306,16 +331,23 @@ def pcg_fused_kernel(diag_p, upper, pdiag_p, r0, *, precond: str, tol: float,
     return dx, iters
 
 
-def pack_operands(S: BlockTridiag, r0, precond: str):
+def precond_blocks(S: BlockTridiag, precond: str):
+    """The preconditioner's diagonal blocks: the block-Jacobi inverse (for
+    J, diag(1/d))."""
+    if precond == "J":
+        return torch.diag_embed(1.0 / S.diag.diagonal(0, -2, -1))
+    return _inv_blocks(S.diag, spd=True)   # BJ and SS
+
+
+def pack_operands(S: BlockTridiag, r0, precond: str, pdiag=None):
     """K4's operands (diag_p, upper, pdiag_p, r0) for the systems S with
     initial residuals r0, leading axes flattened to one batch axis: the
-    block-Jacobi inverse (for J, diag(1/d)) packed beside the packed
-    diagonal, and the upper blocks padded with a zero block at N-1."""
-    if precond == "J":
-        pdiag = torch.diag_embed(1.0 / S.diag.diagonal(0, -2, -1))
-    else:   # BJ and SS both need the block-diagonal inverse
-        pdiag = _inv_blocks(S.diag, spd=True)
-    rows, cols, _ = _tri_indices(S.bs)
+    preconditioner's diagonal blocks (``pdiag``, else
+    ``precond_blocks``) packed beside the packed diagonal, and the upper
+    blocks padded with a zero block at N-1."""
+    if pdiag is None:
+        pdiag = precond_blocks(S, precond)
+    rows, cols = _tri_index_tensors(S.bs, S.diag.device)
     upper = torch.cat([S.upper, torch.zeros_like(S.diag[..., :1, :, :])],
                       dim=-3)
     flat = lambda t, k: t.reshape((-1,) + t.shape[t.dim() - k:]).contiguous()
@@ -329,9 +361,16 @@ def make_batched_pcg(N: int, bs: int, precond: str = "SS", tol: float = 1e-4,
     """Batched PCG through K4 (pallas_pcg.py:284-382).
 
     Returns solve(S, gam (B, N, bs), guess (B, N, bs)) -> (x, iters).  The
-    block-Jacobi inverse (for J, diag(1/d)) and r0 = gam - S guess are
-    computed outside the kernel in the operands' dtype; the kernel solves
-    from a zero iterate and x = guess + dx.  ``operator_dtype`` stores the
+    block-Jacobi inverse (for J, diag(1/d)) and r0 = gam - S x0 are
+    computed outside the kernel in the operands' dtype, x0 the guess or,
+    where the guess is far worse than none, zero (``btridiag.warm_start``, by
+    the preconditioner in the operands' dtype); the kernel solves from a
+    zero iterate against c r0, c = ``btridiag.residual_scale(r0)`` under the
+    relative exit (1 for every ordinary r0) and 1 under the absolute one,
+    and x = x0 + dx / c.  Each call adds the returned
+    iterations and the scenarios solved to the totals ``pcg/iters`` and
+    ``pcg/scenarios`` (on the device, no host read) and runs the kernel in
+    the span ``fused_pcg.launch``.  ``operator_dtype`` stores the
     packed diagonal blocks, ``precond_dtype`` their packed inverses, in a
     narrower dtype (bfloat16, float16, or float32 under float64 operands;
     the upper blocks keep the operands'); with a preconditioner stored
@@ -339,7 +378,7 @@ def make_batched_pcg(N: int, bs: int, precond: str = "SS", tol: float = 1e-4,
     (:335-336).  A storage dtype wider than the operands' raises TypeError
     (JAX would promote the whole solve).  CUDA tensors go to K4 (or
     raise), CPU tensors to ``pcg_fused_plain``."""
-    _precond_code(precond)
+    ss = _precond_code(precond) == 1
     for name, dt in (("precond_dtype", precond_dtype),
                      ("operator_dtype", operator_dtype)):
         if dt is not None and dt not in STORAGE and dt != torch.float64:
@@ -350,15 +389,22 @@ def make_batched_pcg(N: int, bs: int, precond: str = "SS", tol: float = 1e-4,
         if S.nblocks != N or S.bs != bs:
             raise ValueError(f"solver built for N={N}, bs={bs}; got "
                              f"N={S.nblocks}, bs={S.bs}")
-        r0 = gam - btd_matvec(S, guess)
-        diag_p, upper, pdiag_p, r0p = pack_operands(S, r0, precond)
+        pdiag = precond_blocks(S, precond)
+        x0, r0, c = warm_start(gam, guess, lambda v: btd_matvec(S, v),
+                               lambda v: _apply_P(pdiag, S.upper, v, ss))
+        # K4's absolute exit takes the scalar tol: unscaled there
+        c = c[..., None, None] if relative else 1.0
+        diag_p, upper, pdiag_p, r0p = pack_operands(S, r0 * c, precond, pdiag)
         if operator_dtype is not None:
             diag_p = diag_p.to(operator_dtype)
         if precond_dtype is not None:
             pdiag_p = pdiag_p.to(precond_dtype)
         fused = pcg_fused_kernel if on_card(r0) else pcg_fused_plain
-        dx, iters = fused(diag_p, upper, pdiag_p, r0p, precond=precond,
-                          tol=tol, max_iter=max_iter, relative=relative)
-        return guess + dx.reshape(r0.shape), iters.reshape(r0.shape[:-2])
+        with spans.span("fused_pcg.launch"):
+            dx, iters = fused(diag_p, upper, pdiag_p, r0p, precond=precond,
+                              tol=tol, max_iter=max_iter, relative=relative)
+        spans.tally("pcg/iters", iters)
+        spans.tally("pcg/scenarios", iters.numel())
+        return x0 + dx.reshape(r0.shape) / c, iters.reshape(r0.shape[:-2])
 
     return solve

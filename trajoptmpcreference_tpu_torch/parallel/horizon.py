@@ -43,10 +43,13 @@ from trajoptmpcreference_tpu_torch.ops.btridiag import (
     _inv_blocks,
     btd_block_thomas,
     btd_block_thomas_multi,
+    pow2_scale,
+    warm_start,
 )
 from trajoptmpcreference_tpu_torch.parallel.multihost import (
     CALLS,
     all_gather_tiled,
+    all_reduce_max,
     all_reduce_sum,
 )
 from trajoptmpcreference_tpu_torch.utils import spans
@@ -320,16 +323,32 @@ def sharded_pcg(A: ShardedBTD, b: torch.Tensor, group,
     """Horizon-sharded PCG: the iterates of ops.btridiag.pcg, with
     halo-exchange matvecs and all-reduced dot products (ref loop
     semantics: PCG.py:66-111).  ``relative`` is btridiag.pcg's
-    scale-invariant exit (|nu| <= tol |nu_0|, floored at 1e-30).
+    scale-invariant exit (|nu| <= tol |nu_0|, floored at 1e-30).  It starts
+    as btridiag.pcg does: a guess far worse than none is dropped
+    (``btridiag.warm_start``, its dot products and its max over the
+    ranks), and under the relative exit the system is scaled by the power
+    of two of the initial residual's max over the whole horizon.
 
     Every scenario has its own threshold and stops updating once it has
     converged (the JAX loop's per-sample freeze under vmap), so its result
     does not depend on its batchmates.  ``done`` comes from all-reduced
     values alone, so every rank leaves the loop at the same iteration."""
     Pinv = sharded_preconditioner(A, precond, group)
-    x = torch.zeros_like(b) if guess is None else guess
-    r = b - sharded_btd_matvec(A, x, group)
-    rt = sharded_btd_matvec(Pinv, r, group)
+    matvec = lambda M, v: sharded_btd_matvec(M, v, group)
+    allmax = lambda m: all_reduce_max(m, group)
+    if guess is None:
+        x = torch.zeros_like(b)
+        r = b - matvec(A, x)
+        cs = pow2_scale(allmax(r.abs().amax((-1, -2)))) if relative else None
+    else:
+        x, r, cs = warm_start(
+            b, guess, lambda v: matvec(A, v),
+            lambda v: torch.stack([matvec(Pinv, v[0]), matvec(Pinv, v[1])]),
+            dot=lambda u, v: _pvdot(u, v, group), allmax=allmax)
+    if relative:
+        c = cs[:, None, None]
+        x, r, b = x * c, r * c, b * c
+    rt = matvec(Pinv, r)
     p = rt
     nu = _pvdot(r, rt, group)
     thr = (exit_tolerance * nu.abs() if relative
@@ -357,4 +376,6 @@ def sharded_pcg(A: ShardedBTD, b: torch.Tensor, group,
         nu = torch.where(done, nu, nu_new)
         it = torch.where(done, it, it + 1)
         done = done | (nu_new.abs() <= thr)
+    if relative:
+        x = x / c
     return ShardedPCGResult(x=x, iters=it, converged=done)

@@ -131,10 +131,20 @@ def all_gather_tiled(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.to(x.dtype).movedim(0, dim)
 
 
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, op=op, group=group)
+    CALLS["all_reduce"] += 1
+    return out
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x`` (JAX's ``psum``), on every rank, by
     one collective on ``group``; ``x`` is left as it was."""
-    out = x.clone()
-    dist.all_reduce(out, group=group)
-    CALLS["all_reduce"] += 1
-    return out
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` (JAX's ``pmax``), as
+    ``all_reduce_sum``."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)

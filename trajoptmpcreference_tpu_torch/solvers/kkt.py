@@ -646,12 +646,9 @@ def _no_hand_kernels(site: str):
     """Raise if a hand kernel was launched inside the block.  Wraps a
     graph capture: a launch captured into a graph would run at every
     replay with no ``launch/<kernel>`` count."""
-    def launches():
-        return {k: n for k, n in spans.snapshot()["counts"].items()
-                if k.startswith("launch/")}
-    before = launches()
+    before = spans.launch_counts()
     yield
-    after = launches()
+    after = spans.launch_counts()
     if after != before:
         raise RuntimeError(
             f"{site}: hand-kernel launches captured into a CUDA graph: "

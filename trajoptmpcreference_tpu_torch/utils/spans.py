@@ -18,6 +18,13 @@ and kernel launch counts, kept in memory until a caller takes a
 * ``graphed(site)``: counts one capture or replay of a CUDA graph under
   ``graph/<site>``, always; while tracing is on it also times the call as
   the child span ``graph/<site>``.
+* ``tally(key, value)``: adds to the total ``key``, always: a number on
+  the host, a tensor's sum on its own device, so that a count the device
+  holds (K4's iterations) costs no host read in the step; ``snapshot()``
+  reads the device totals, one host read each.  The totals kept:
+  ``pcg/iters``, the iterations that K4 or its plain version returned,
+  summed over scenarios and calls, and ``pcg/scenarios``, the scenarios
+  those calls solved (``ops/fused_pcg.make_batched_pcg``).
 
 ``enable(True)`` switches tracing on; ``reset()`` clears every total and
 count.  The spans are named after the layer call they time (the layers of
@@ -31,6 +38,7 @@ PERF.md section 3):
           KKTSystem.solve_schur
             KKTSystem.schur_blocks   the split, condensed or generic assembly
             btridiag.solve           cyclic reduction, Thomas or PCG
+              fused_pcg.launch       K4 (its plain version on CPU tensors)
             KKTSystem.recover_dxu
             graph/solve_schur.capture  the exact solve captured (CUDA)
             graph/solve_schur.replay   the exact solve replayed (CUDA)
@@ -49,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,6 +66,8 @@ _totals: Dict[str, List[int]] = {}       # name -> [calls, ns, self ns]
 _syncs: Dict[str, int] = {}              # site -> host reads
 _launches: Dict[str, int] = {}           # kernel -> launches
 _graphs: Dict[str, int] = {}             # site -> graph captures, replays
+_tallies: Dict[str, int] = {}            # key -> total kept on the host
+_device_tallies: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 _stack: List["_Span"] = []
 _step = 0                                # control steps traced so far
 _clock = time.perf_counter_ns
@@ -161,30 +171,64 @@ def graphed(site: str):
     return _Span("graph/" + site)
 
 
+def tally(key: str, value) -> None:
+    """Add ``value`` to the total ``key`` (``pcg/iters``, ...): an int on
+    the host; an integer tensor summed on its own device into a running
+    int64 total kept there (two device operations, no host read)."""
+    if not isinstance(value, torch.Tensor):
+        _tallies[key] = _tallies.get(key, 0) + value
+        return
+    acc = _device_tallies.get((key, value.device))
+    if acc is None:
+        acc = _device_tallies[(key, value.device)] = torch.zeros(
+            (), dtype=torch.int64, device=value.device)
+    acc.add_(value.sum())
+
+
+def _tally_totals() -> Dict[str, int]:
+    """Every total of ``tally``, the device ones read to the host."""
+    out = dict(_tallies)
+    for (key, _), acc in _device_tallies.items():
+        out[key] = out.get(key, 0) + acc.item()
+    return out
+
+
 def count(key: str) -> int:
     """The count under ``key`` (``launch/fd``, ``sync/sqp.round``,
-    ``graph/solve_schur.replay``, ...)."""
+    ``graph/solve_schur.replay``, ``pcg/iters``, ...)."""
     kind, _, name = key.partition("/")
-    return {"launch": _launches, "sync": _syncs,
-            "graph": _graphs}[kind].get(name, 0)
+    counts = {"launch": _launches, "sync": _syncs, "graph": _graphs}
+    if kind in counts:
+        return counts[kind].get(name, 0)
+    return _tally_totals().get(key, 0)
+
+
+def launch_counts() -> Dict[str, int]:
+    """``launch/<kernel>`` -> launches, as ``snapshot`` gives them, with no
+    device read."""
+    return {f"launch/{k}": n for k, n in _launches.items()}
 
 
 def reset() -> None:
-    """Clear every span total and every count (launches and graph calls
-    included)."""
+    """Clear every span total and every count (launches, graph calls and
+    tallies included)."""
     global _step
     _totals.clear()
     _syncs.clear()
     _launches.clear()
     _graphs.clear()
+    _tallies.clear()
+    _device_tallies.clear()
     _step = 0
 
 
 def snapshot() -> dict:
     """A copy of what has been recorded since the last ``reset``:
-    ``{"spans": {name: {"calls", "ns", "self_ns"}}, "counts": {key: n}}``."""
+    ``{"spans": {name: {"calls", "ns", "self_ns"}}, "counts": {key: n}}``,
+    the tallies among the counts (their device totals read here)."""
     return {"spans": {name: {"calls": c, "ns": ns, "self_ns": own}
                       for name, (c, ns, own) in _totals.items()},
             "counts": {**{f"sync/{k}": n for k, n in _syncs.items()},
-                       **{f"launch/{k}": n for k, n in _launches.items()},
-                       **{f"graph/{k}": n for k, n in _graphs.items()}}}
+                       **launch_counts(),
+                       **{f"graph/{k}": n for k, n in _graphs.items()},
+                       **_tally_totals()}}
